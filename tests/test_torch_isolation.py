@@ -1,0 +1,104 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its configs keep the JAX package's field names and defaults.
+
+* A fresh interpreter imports every module of the port and must find
+  neither `jax` nor `alore_legged_manipulator_tpu` in `sys.modules`.
+* A scan of the port's sources finds no import of either.
+* Every config NamedTuple the port shares with the JAX package has the
+  same fields with equal defaults (nested configs compared field by
+  field).
+"""
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+import alore_legged_manipulator_tpu_torch as port_pkg
+from alore_legged_manipulator_tpu_torch.convert import _CLASSES, port_class
+
+ROOT = Path(port_pkg.__file__).resolve().parent
+REPO = ROOT.parent
+
+
+def _port_modules():
+    names = [port_pkg.__name__]
+    for info in pkgutil.walk_packages([str(ROOT)], port_pkg.__name__ + "."):
+        names.append(info.name)
+    return sorted(names)
+
+
+def test_module_list_covers_the_slice():
+    mods = _port_modules()
+    for m in ("ops.wavefront", "ops.wavefront_cuda", "planner.backend",
+              "solvers.bfgs", "control.nmpc", "runtime.mission_fleet",
+              "convert", "utils.precision"):
+        assert f"{port_pkg.__name__}.{m}" in mods
+
+
+def test_importing_the_port_loads_no_jax():
+    mods = _port_modules()
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'alore_legged_manipulator_tpu' or "
+            "m.startswith('alore_legged_manipulator_tpu.'))\n"
+            "print('BAD', bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(REPO), timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", sorted(ROOT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_import_no_jax(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "alore_legged_manipulator_tpu",
+                           "flax", "optax"), f"{path.name} imports {name}"
+
+
+def test_chip_smoke_imports_no_jax():
+    for name in _imports(REPO / "chip_smoke.py"):
+        assert name.split(".")[0] not in ("jax", "alore_legged_manipulator_tpu")
+
+
+_CONFIGS = [n for n in sorted(_CLASSES) if n.endswith(("Config", "Params",
+                                                       "Weights"))]
+_JAX_MODULES = {n: "alore_legged_manipulator_tpu." + _CLASSES[n]
+                for n in _CONFIGS}
+
+
+def _same_defaults(jax_obj, port_obj, where):
+    if hasattr(jax_obj, "_fields"):
+        assert tuple(jax_obj._fields) == tuple(port_obj._fields), where
+        for f in jax_obj._fields:
+            _same_defaults(getattr(jax_obj, f), getattr(port_obj, f),
+                           f"{where}.{f}")
+    else:
+        assert jax_obj == port_obj, f"{where}: {jax_obj!r} != {port_obj!r}"
+
+
+@pytest.mark.parametrize("name", _CONFIGS)
+def test_config_defaults_match(name):
+    import importlib
+    jax_cls = getattr(importlib.import_module(_JAX_MODULES[name]), name)
+    port_cls = port_class(name)
+    _same_defaults(jax_cls(), port_cls(), name)
