@@ -52,14 +52,24 @@ def _shifted(a, dx: int, dy: int, fill):
 
 
 def _dist0(blocked, goal_cell):
-    """Initial field: 0 at the goal (if free), _BIG elsewhere; (B, H, W)."""
-    B = blocked.shape[0]
-    dist0 = torch.full(blocked.shape, _BIG, dtype=torch.float32,
-                       device=blocked.device)
-    lanes = torch.arange(B, device=blocked.device)
+    """Initial field: 0 at the goal (if free), _BIG elsewhere; (B, H, W).
+
+    A negative goal index counts from the end once (-1 is the last row
+    or column); a goal that is still outside the grid sets no cell, so
+    the whole field stays _BIG.  The JAX package's `.at[].set` and the
+    CUDA kernels do the same."""
+    B, H, W = blocked.shape
+    dev = blocked.device
+    big = torch.full((), _BIG, dtype=torch.float32, device=dev)
     g = goal_cell.to(torch.int64)
-    dist0[lanes, g[:, 0], g[:, 1]] = 0.0
-    return torch.where(blocked, torch.full_like(dist0, _BIG), dist0)
+    size = torch.tensor([H, W], device=dev)
+    g = torch.where(g < 0, g + size, g)
+    inside = ((g >= 0) & (g < size)).all(dim=1)
+    g = torch.minimum(g.clamp(min=0), size - 1)
+    dist0 = big.expand(B, H, W).clone()
+    dist0[torch.arange(B, device=dev), g[:, 0], g[:, 1]] = torch.where(
+        inside, torch.zeros_like(big), big)
+    return torch.where(blocked, big, dist0)
 
 
 def _invalid_masks(blocked):
@@ -80,15 +90,21 @@ def _invalid_masks(blocked):
     return inval
 
 
-def _relax(dist0, blocked, inval, n_iters: int):
+def _relax(dist0, blocked, inval, n_iters: int, return_sweeps: bool = False):
     """Early-exit Jacobi min-plus relaxation, the minimum grouped before
     the add (min(a, b) + w == min(a + w, b + w) exactly in f32), so the
     field is bit-identical to the add-then-min sweep of the JAX package's
-    XLA path and to the kernels."""
+    XLA path and to the kernels.
+
+    With `return_sweeps` also the (B,) int32 count of sweeps each lane
+    ran: up to and including its first sweep that changed nothing, or
+    `n_iters` if that cut it short (the kernels' sweep count)."""
     big = dist0.new_tensor(_BIG)
     one = dist0.new_tensor(1.0)
     sq2 = dist0.new_tensor(SQ2)
     d = dist0
+    running = torch.ones(d.shape[0], dtype=torch.bool, device=d.device)
+    sweeps = torch.zeros(d.shape[0], dtype=torch.int32, device=d.device)
     for _ in range(n_iters):
         ms = mo = None
         for (dx, dy, _w), bad in zip(_MOVES, inval):
@@ -99,20 +115,24 @@ def _relax(dist0, blocked, inval, n_iters: int):
                 ms = cand if ms is None else torch.minimum(ms, cand)
         best = torch.minimum(d, torch.minimum(ms + one, mo + sq2))
         best = torch.where(blocked, big, best)
-        changed = bool((best < d).any())
+        lane_changed = (best < d).flatten(1).any(dim=1)
+        sweeps = sweeps + running.to(torch.int32)
+        running = running & lane_changed
         d = best
-        if not changed:
+        if not bool(lane_changed.any()):
             break
-    return d
+    return (d, sweeps) if return_sweeps else d
 
 
-def octile_distance_field_torch(blocked, goal_cell, n_iters: int | None = None):
+def octile_distance_field_torch(blocked, goal_cell, n_iters: int | None = None,
+                                return_sweeps: bool = False):
     """Plain PyTorch version of the field kernel (K2): (B, H, W) float32
-    octile distance to each lane's goal; _BIG where unreachable/blocked."""
+    octile distance to each lane's goal; _BIG where unreachable/blocked
+    [, sweeps (B,) int32]."""
     H, W = blocked.shape[-2:]
     n_iters = H + W if n_iters is None else n_iters
     return _relax(_dist0(blocked, goal_cell), blocked,
-                  _invalid_masks(blocked), n_iters)
+                  _invalid_masks(blocked), n_iters, return_sweeps)
 
 
 def _policy_flags(d, inval):
@@ -136,17 +156,20 @@ def _policy_flags(d, inval):
     return best_mv, flags
 
 
-def wavefront_packed_torch(blocked, goal_cell, n_iters: int | None = None):
+def wavefront_packed_torch(blocked, goal_cell, n_iters: int | None = None,
+                           return_sweeps: bool = False):
     """Plain PyTorch version of the packed kernel (K1).
 
-    Returns (dist (B, H, W) f32, packed (B, H, W) i32): move (bits 0-2) |
-    stuck (3) | at_goal (4) | disconnected (5) | straight run length
-    (bits 6+, min(true run, 16), by the JAX kernel's chain doubling).
+    Returns (dist (B, H, W) f32, packed (B, H, W) i32) [, sweeps (B,)
+    i32]: move (bits 0-2) | stuck (3) | at_goal (4) | disconnected (5) |
+    straight run length (bits 6+, min(true run, 16), by the JAX kernel's
+    chain doubling).
     """
     H, W = blocked.shape[-2:]
     n_iters = H + W if n_iters is None else n_iters
     inval = _invalid_masks(blocked)
-    d = _relax(_dist0(blocked, goal_cell), blocked, inval, n_iters)
+    d, sweeps = _relax(_dist0(blocked, goal_cell), blocked, inval, n_iters,
+                       return_sweeps=True)
     best_mv, flags = _policy_flags(d, inval)
     done_cell = flags != 0
     runlen = torch.zeros_like(d)
@@ -159,7 +182,7 @@ def wavefront_packed_torch(blocked, goal_cell, n_iters: int | None = None):
             span *= 2
         runlen = torch.where(best_mv == mi, L, runlen)
     packed = best_mv | flags | (runlen.to(torch.int32) << 6)
-    return d, packed
+    return (d, packed, sweeps) if return_sweeps else (d, packed)
 
 
 def octile_distance_field(blocked, goal_cell, n_iters: int | None = None,

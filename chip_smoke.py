@@ -9,16 +9,23 @@ Phases, each printing lines of its own:
    alore_legged_manipulator_tpu_torch/csrc/ with nvcc (sm_90a).
 2. Kernels against their plain PyTorch versions on the card: K1
    (`wavefront_packed_cuda`) and K2 (`octile_distance_field_cuda`) on
-   random-obstacle 80x80 grids (B=192) and on the 100x100 bench map
-   (B=4096).  Fields and packed words must be bit-identical and the
-   extracted paths identical; each kernel and its plain version are timed
-   with CUDA events after a warm-up.
+   random-obstacle 80x80 grids at the mission's launch shape (B=64) and
+   at B=192, and on the 100x100 bench map (B=4096).  Fields, packed
+   words and sweep counts must be bit-identical and the extracted paths
+   identical; each kernel and its plain version are timed with CUDA
+   events after a warm-up.  Also bit-identical: a serpentine grid whose
+   relaxation `n_iters` cuts short, goals outside the grid and on blocked
+   cells, and a 150x150 grid; a 162x162 grid, the first square one that
+   fits no block, must be refused with ValueError.  The runtime's
+   occupancy report is printed for each instantiation used.
 3. The mission fleet on the card at full width: B=64 three-object
    missions on the 80x80 map (wavefront front end, MINCO back end,
-   NMPC + ICR-EKF closed-loop push), driven through `run_mission`.  The
-   kernels' launch counts are set to 0 just before and read just after;
-   K1 must have run.  A small fleet is also run on the CPU through the
-   plain versions, and its front end and deliveries are compared.
+   NMPC + ICR-EKF closed-loop push), driven through `run_mission`, and
+   the fleet's first-leg field once more through the public
+   `octile_distance_field` (K2).  The kernels' launch counts are set to 0
+   just before and read just after; both kernels must have run.  A small
+   fleet is also run on the CPU through the plain versions, and its front
+   end and deliveries are compared.
 4. The `kernels` JSON line, and as the last line
    {"ok": true, "device": {...}}.
 
@@ -52,67 +59,44 @@ def _phase(name):
     print(f"== {name}", flush=True)
 
 
-def _time_ms(fn, iters, warmup=2):
-    for _ in range(warmup):
-        fn()
+def check_identical(wf, wfc, label, occ, goals, n_iters=None):
+    """K1 and K2 against the plain versions on one input: field, packed
+    word and sweep count bit for bit.  Returns the kernel's outputs and
+    the largest absolute field error of each kernel (0.0 when it passes)."""
+    blk = torch.as_tensor(occ, device="cuda")
+    g = torch.as_tensor(goals, device="cuda")
+    d_k, p_k, sweeps = wfc.wavefront_packed_cuda(blk, g, n_iters,
+                                                 return_sweeps=True)
+    d_f, sweeps_f = wfc.octile_distance_field_cuda(blk, g, n_iters,
+                                                   return_sweeps=True)
+    d_p, p_p, sweeps_p = wf.wavefront_packed_torch(blk, g, n_iters,
+                                                   return_sweeps=True)
     torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(iters):
-        fn()
-    e1.record()
-    e1.synchronize()
-    return e0.elapsed_time(e1) / iters
-
-
-def _random_grids(rng, B, H, W, p=0.2):
-    occ = rng.random((B, H, W)) < p
-    goals = np.stack([rng.integers(0, H, B), rng.integers(0, W, B)], 1)
-    starts = np.stack([rng.integers(0, H, B), rng.integers(0, W, B)], 1)
-    lanes = np.arange(B)
-    occ[lanes, goals[:, 0], goals[:, 1]] = False
-    occ[lanes, starts[:, 0], starts[:, 1]] = False
-    return occ, goals, starts
-
-
-def _bench_map_grids(rng, B):
-    """bench.py's front-end map: 100x100, walls, two bars; res 0.1."""
-    from alore_legged_manipulator_tpu_torch.ops.esdf import esdf_from_occupancy
-    occ = np.zeros((100, 100), bool)
-    occ[0, :] = occ[-1, :] = occ[:, 0] = occ[:, -1] = True
-    occ[40:44, 10:70] = True
-    occ[70:74, 30:95] = True
-    esdf = esdf_from_occupancy(torch.as_tensor(occ), torch.zeros(2), 0.1)
-    blocked = (esdf.dist < 0.3).cpu().numpy()         # FrontendConfig.safe_dis
-    s = rng.uniform([1.0, 1.0], [3.0, 8.5], (B, 2))
-    g = rng.uniform([8.0, 1.0], [9.5, 8.5], (B, 2))
-    return (np.broadcast_to(blocked, (B, 100, 100)).copy(),
-            (g / 0.1).astype(np.int32), (s / 0.1).astype(np.int32))
+    assert torch.equal(d_k, d_p), f"{label}: K1 dist differs from plain"
+    assert torch.equal(p_k, p_p), f"{label}: K1 packed differs from plain"
+    assert torch.equal(d_f, d_p), f"{label}: K2 dist differs from plain"
+    assert torch.equal(sweeps, sweeps_p), f"{label}: K1 sweep counts differ"
+    assert torch.equal(sweeps_f, sweeps_p), f"{label}: K2 sweep counts differ"
+    return blk, g, sweeps, (float((d_k - d_p).abs().max()),
+                            float((d_f - d_p).abs().max()))
 
 
 def check_kernels(wf, wfc, label, occ, goals, starts, path_len, iters):
     """Bit-exactness and timings of K1 and K2 against the plain versions
     at one shape; returns {kernel: measurements}."""
+    from alore_legged_manipulator_tpu_torch.ops.wavefront_bench import time_ms
     B, H, W = occ.shape
-    blk = torch.as_tensor(occ, device="cuda")
-    g = torch.as_tensor(goals, device="cuda")
+    blk, g, sweeps, (err1, err2) = check_identical(wf, wfc, label, occ, goals)
     s = torch.as_tensor(starts, device="cuda")
-
-    d_k, p_k, sweeps = wfc.wavefront_packed_cuda(blk, g, return_sweeps=True)
-    d_p, p_p = wf.wavefront_packed_torch(blk, g)
-    d_f, sweeps_f = wfc.octile_distance_field_cuda(blk, g, return_sweeps=True)
-    d_fp = wf.octile_distance_field_torch(blk, g)
     _, c_k, v_k = wf.wavefront_path(blk, g, s, path_len, impl="cuda")
     _, c_p, v_p = wf.wavefront_path(blk, g, s, path_len, impl="torch")
-    assert torch.equal(d_k, d_p), f"{label}: K1 dist differs from plain"
-    assert torch.equal(p_k, p_p), f"{label}: K1 packed differs from plain"
-    assert torch.equal(d_f, d_fp), f"{label}: K2 dist differs from plain"
-    assert torch.equal(sweeps, sweeps_f), f"{label}: K1/K2 sweep counts differ"
     assert torch.equal(c_k, c_p) and torch.equal(v_k, v_p), \
         f"{label}: wavefront_path cells/valid differ"
-    err1 = float((d_k - d_p).abs().max())
-    err2 = float((d_f - d_fp).abs().max())
+    # what a sweep of this design moves through shared memory when every
+    # strip recomputes: two rows of S + 2 floats and two border cells
+    # read, S floats written, for S cells
+    S = wfc.strip_geometry(H, W, None, B <= 2 * wfc._sm_count(0)).strip
+    smem_bytes_cell = 4.0 * (2 * (S + 2) + 2 + S) / S
 
     cells = B * H * W
     sw = int(sweeps.to(torch.int64).sum())             # sum over lanes
@@ -120,22 +104,29 @@ def check_kernels(wf, wfc, label, occ, goals, starts, path_len, iters):
     for name, fn, plain, err, bytes_cell, ops in (
             ("wavefront_packed",
              lambda: wfc.wavefront_packed_cuda(blk, g),
-             lambda: wf.wavefront_packed_torch(blk, g), err1, 1 + 4 + 4 + 4,
+             lambda: wf.wavefront_packed_torch(blk, g), err1, 1 + 4 + 4,
              sw * H * W * OPS_PER_CELL_SWEEP + cells * OPS_PER_CELL_POLICY),
             ("octile_distance_field",
              lambda: wfc.octile_distance_field_cuda(blk, g),
-             lambda: wf.octile_distance_field_torch(blk, g), err2, 1 + 4 + 4,
+             lambda: wf.octile_distance_field_torch(blk, g), err2, 1 + 4,
              sw * H * W * OPS_PER_CELL_SWEEP)):
-        ms = _time_ms(fn, iters)
-        plain_ms = _time_ms(plain, 1, warmup=1)
+        ms = time_ms(fn, iters)
+        plain_ms = time_ms(plain, 1, warmup=1)
         t_bytes = cells * bytes_cell / HBM_BYTES_PER_S * 1e3
         t_ops = ops / F32_OPS_PER_S * 1e3
         out[name] = dict(
             shape=f"{B}x{H}x{W}", ms=ms, plain_ms=plain_ms, max_abs_err=err,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            smem_bound_ms=sw * H * W * 9 * 4 / SMEM_BYTES_PER_S * 1e3,
-            sweeps_mean=sw / B, sweeps_max=int(sweeps.max()))
+            smem_full_sweeps_ms=(sw * H * W * smem_bytes_cell
+                                 / SMEM_BYTES_PER_S * 1e3),
+            smem_bound_first_design_ms=(sw * H * W * 9 * 4
+                                      / SMEM_BYTES_PER_S * 1e3),
+            strip=S, sweeps_mean=sw / B, sweeps_max=int(sweeps.max()),
+            **{k: v for k, v in wfc.occupancy(
+                H, W, name == "wavefront_packed", S).items()
+               if k in ("blocks_per_sm", "registers", "threads",
+                        "smem_bytes", "spill_bytes")})
         print(f"{label} {name}: bit-identical to plain; "
               + json.dumps(out[name]), flush=True)
     mean_turn_cells = float(v_k.sum(1).to(torch.float32).mean())
@@ -201,6 +192,8 @@ def main() -> int:
     from alore_legged_manipulator_tpu_torch.ops import wavefront as wf
     from alore_legged_manipulator_tpu_torch.ops import wavefront_cuda as wfc
     from alore_legged_manipulator_tpu_torch.ops.esdf import esdf_from_occupancy
+    from alore_legged_manipulator_tpu_torch.ops.wavefront_bench import (
+        bench_map_grids, random_grids, serpentine_grid)
     from alore_legged_manipulator_tpu_torch.runtime import mission_fleet as mf
     from alore_legged_manipulator_tpu_torch.utils.precision import (
         set_precision_policy)
@@ -226,18 +219,45 @@ def main() -> int:
     # ---- 2. kernels against their plain versions ----
     _phase("kernels against plain versions")
     rng = np.random.default_rng(0)
-    m80 = check_kernels(wf, wfc, "80x80 B=192", *_random_grids(rng, 192, 80, 80),
+    m80 = check_kernels(wf, wfc, "80x80 B=192", *random_grids(rng, 192, 80, 80),
                         path_len=160, iters=20)
-    m100 = check_kernels(wf, wfc, "100x100 B=4096", *_bench_map_grids(rng, 4096),
+    m100 = check_kernels(wf, wfc, "100x100 B=4096", *bench_map_grids(rng, 4096),
                          path_len=256, iters=5)
-    oversize = torch.zeros((1, 160, 160), dtype=torch.bool, device="cuda")
+    m64 = check_kernels(wf, wfc, "80x80 B=64", *random_grids(rng, 64, 80, 80),
+                        path_len=160, iters=20)
+    # a relaxation that n_iters cuts short (and the same grid run out)
+    occ_s, goal_s, _ = serpentine_grid(40, 50)
+    for n_iters in (7, None, 2000):
+        _, _, sw, _ = check_identical(wf, wfc, f"serpentine n_iters={n_iters}",
+                                      occ_s, goal_s, n_iters)
+        print(f"serpentine 40x50, n_iters={n_iters}: bit-identical, "
+              f"{int(sw[0])} sweeps", flush=True)
+    # goals outside the grid (a negative index counts from the end once)
+    # and on a blocked cell
+    occ_o, _, _ = random_grids(rng, 8, 20, 24)
+    occ_o[7, 5, 5] = True
+    goals_o = np.array([[-1, 3], [-20, -24], [-21, 3], [20, 3], [2, 24],
+                        [2, -25], [1000, 1000], [5, 5]])
+    _, _, sw, _ = check_identical(wf, wfc, "goals outside", occ_o, goals_o)
+    print(f"goals outside the grid / blocked: bit-identical, sweeps "
+          f"{sw.tolist()}", flush=True)
+    # a grid that the 10 B/cell layout of the first design could not hold
+    check_identical(wf, wfc, "150x150", *random_grids(rng, 2, 150, 150)[:2])
+    print("2x150x150: bit-identical", flush=True)
+    for (H, W), few in (((80, 80), True), ((80, 80), False),
+                        ((100, 100), False), ((150, 150), True)):
+        for packed in (True, False):
+            print(f"occupancy {H}x{W} {'K1' if packed else 'K2'}: "
+                  + json.dumps(wfc.occupancy(H, W, packed, None, few)),
+                  flush=True)
+    oversize = torch.zeros((1, 162, 162), dtype=torch.bool, device="cuda")
     try:
         wfc.wavefront_packed_cuda(oversize, torch.zeros((1, 2), dtype=torch.int64,
                                                         device="cuda"))
     except ValueError as e:
-        print(f"160x160 refused as expected: {e}", flush=True)
+        print(f"162x162 refused as expected: {e}", flush=True)
     else:
-        raise AssertionError("a 160x160 grid was not refused")
+        raise AssertionError("a 162x162 grid was not refused")
 
     # ---- 3. the mission fleet on the card ----
     _phase("mission fleet B=64 K=3 on the card")
@@ -257,9 +277,23 @@ def main() -> int:
     res = mf.run_mission(items32, targets32, robot0, esdf, icr, cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    # the field alone, as a user asks for it: the first leg's targets on
+    # the mission's inflated map through the public entry point
+    blk_m = (esdf.dist < cfg.wf_safe_dis).expand(B, 80, 80).contiguous()
+    goal_m = torch.clamp(torch.as_tensor(targets32[:, 0] / 0.1,
+                                         device="cuda").to(torch.int32),
+                         0, 79)
+    field_m = wf.octile_distance_field(blk_m, goal_m)
+    torch.cuda.synchronize()
     launches = dict(wfc.LAUNCHES)
     print("launches during the mission:", json.dumps(launches), flush=True)
-    assert launches["wavefront_packed"] > 0, "K1 never ran on the main path"
+    assert launches["wavefront_packed"] >= 3, \
+        "K1 ran fewer than 3 times on the main path"
+    assert launches["octile_distance_field"] >= 1, \
+        "K2 never ran through octile_distance_field"
+    assert torch.equal(field_m, wf.octile_distance_field_torch(blk_m, goal_m)), \
+        "the mission map's field differs from plain"
+    assert bool((field_m < 1e9).any())
     assert res.object_err.shape == (B, K) and res.push_traj.shape == \
         (B, K, cfg.push_ticks, 3)
     for name, v in res._asdict().items():
@@ -269,7 +303,9 @@ def main() -> int:
     err = res.object_err
     print(json.dumps({
         "mission_wall_s": wall, "missions": B, "objects": K,
-        "delivered_frac": delivered, "object_err_mean": float(err.mean()),
+        "delivered_frac": delivered,
+        "delivered_per_leg": res.delivered.sum(0).tolist(),
+        "object_err_mean": float(err.mean()),
         "object_err_max": float(err.max()),
         "plan_err_max": float(res.plan_err.max()),
         "collision_frac": float(res.collision.float().mean()),
@@ -317,9 +353,12 @@ def main() -> int:
             name=name, route="cuda",
             source="alore_legged_manipulator_tpu_torch/csrc/wavefront.cu",
             replaces=replaces, launches=launches[name],
-            max_abs_err=max(m["max_abs_err"], m100[name]["max_abs_err"]),
+            max_abs_err=max(m["max_abs_err"], m100[name]["max_abs_err"],
+                            m64[name]["max_abs_err"]),
             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=None, shape=m["shape"],
+            ms_64x80x80=m64[name]["ms"], plain_ms_64x80x80=m64[name]["plain_ms"],
+            bound_ms_64x80x80=m64[name]["bound_ms"],
             ms_100x100=m100[name]["ms"], plain_ms_100x100=m100[name]["plain_ms"],
             bound_ms_100x100=m100[name]["bound_ms"]))
     print(json.dumps({"kernels": kern}), flush=True)
