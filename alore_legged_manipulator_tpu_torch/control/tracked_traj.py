@@ -1,5 +1,4 @@
-"""Controller-side trajectory analysis (port of control/tracked_traj.py:
-build_tracked_traj, pstate, vstate, ref_points).
+"""Controller-side trajectory analysis (port of control/tracked_traj.py).
 
 The controller rebuilds the MINCO spline from a Polynome, pre-integrates
 the world-position flow once on a dense uniform grid, and answers pose
@@ -39,6 +38,29 @@ def build_tracked_traj(msg: Polynome, n_grid: int = 2048) -> TrackedTraj:
                        duration=traj.total_time)
 
 
+def pad_tracked_traj(tt: TrackedTraj, capacity: int) -> TrackedTraj:
+    """Pad the piece dimension to a fixed capacity, so that lanes or
+    plans of different piece counts share one shape.
+
+    Pad pieces have zero duration and constant coefficients equal to the
+    trajectory's end flat state: `locate` maps t = duration into the
+    first pad piece at local time 0, which evaluates to the exact end
+    pose with zero derivatives, the pose-hold the reference controller
+    samples past the trajectory end.  Interior t are unaffected
+    (zero-length pieces are never selected for t < duration).
+    """
+    B, n = tt.traj.times.shape
+    if n >= capacity:
+        return tt
+    end_state = poly.eval_traj(tt.traj, tt.duration[:, None], 0)   # (B, 1, 2)
+    pad = tt.traj.coeffs.new_zeros((B, capacity - n, poly.NCOEF, 2))
+    pad[:, :, 0, :] = end_state
+    coeffs = torch.cat([tt.traj.coeffs, pad], dim=1)
+    times = torch.cat([tt.traj.times,
+                       tt.traj.times.new_zeros((B, capacity - n))], dim=1)
+    return tt._replace(traj=PolyTraj(coeffs=coeffs, times=times))
+
+
 def pstate(tt: TrackedTraj, t):
     """World pose (x, y, yaw) at times t (B, M) -> (B, M, 3)
     (traj_anal.hpp:105-130)."""
@@ -66,6 +88,12 @@ def vstate(tt: TrackedTraj, t):
     """(yawdot, sdot) at times t (B, M)."""
     t = torch.minimum(torch.clamp(t, min=0.0), tt.duration[:, None])
     return poly.eval_traj(tt.traj, t, 1)
+
+
+def astate(tt: TrackedTraj, t):
+    """(yaw acceleration, s acceleration) at times t (B, M)."""
+    t = torch.minimum(torch.clamp(t, min=0.0), tt.duration[:, None])
+    return poly.eval_traj(tt.traj, t, 2)
 
 
 def ref_points(tt: TrackedTraj, t_now, n_samples: int, dt, yaw_est,
@@ -96,3 +124,29 @@ def ref_points(tt: TrackedTraj, t_now, n_samples: int, dt, yaw_est,
     ref_x = torch.stack([states[..., 0], states[..., 1], yaw], dim=1)
     ref_u = torch.stack([vr, vl], dim=1)
     return ref_x, ref_u
+
+
+def ltv_ref_points(tt: TrackedTraj, t_cur, horizon: int, dt, yaw_est):
+    """Reference rows for one LTV-MPC tick (mpc_controller getRefPoints,
+    mpc_controller/src/mpc.cpp:634-691): samples t_cur+dt ... t_cur+T*dt
+    clamped at the trajectory end (pose-hold with the END state's
+    velocities: the reference samples curV at traj_duration, not zero),
+    yaw normalized per sample and then unwrapped against the odom yaw
+    (:538-567).  t_cur: float or (B,); yaw_est: (B,).
+
+    Returns xref (B, 4, T) rows (x, y, v-slot, yaw) and dref (B, 2, T)
+    rows (v, omega).
+    """
+    B = tt.seq.shape[0]
+    k = torch.arange(1, horizon + 1, dtype=tt.seq.dtype,
+                     device=tt.seq.device)
+    t_cur = torch.as_tensor(t_cur, dtype=tt.seq.dtype, device=tt.seq.device)
+    ts = (t_cur.reshape(-1, 1) + dt * k).expand(B, horizon)
+    tq = torch.minimum(ts, tt.duration[:, None])
+    states = pstate(tt, tq)
+    vels = vstate(tt, tq)
+    yaw = smooth_yaw_sequence(yaw_est, normalize_angle(states[..., 2]))
+    xref = torch.stack([states[..., 0], states[..., 1],
+                        torch.zeros_like(yaw), yaw], dim=1)
+    dref = torch.stack([vels[..., 1], vels[..., 0]], dim=1)
+    return xref, dref

@@ -29,17 +29,24 @@ _CLASSES = {
     "NmpcConfig": "control.nmpc",
     "EkfState": "estimator.icr_ekf",
     "EkfConfig": "estimator.icr_ekf",
+    "FirstOrderFilter": "estimator.icr_ekf",
+    "SimpleIcrState": "estimator.icr_ekf",
+    "ConvergenceMonitor": "estimator.icr_ekf",
     "PlantState": "world.plant",
     "PlantConfig": "world.plant",
     "TrackedTraj": "control.tracked_traj",
     "LoopConfig": "runtime.closed_loop",
+    "TrackingResult": "runtime.closed_loop",
+    "MincoProblem": "solvers.minco",
     "LbfgsParams": "solvers.lbfgs",
     "BackendWeights": "planner.backend",
     "PathWeights": "planner.backend",
     "AlmConfig": "planner.backend",
     "BackendConfig": "planner.backend",
+    "BackendResult": "planner.backend",
     "FleetFsmConfig": "runtime.mission_fleet",
     "MissionFleetConfig": "runtime.mission_fleet",
+    "MissionFleetResult": "runtime.mission_fleet",
 }
 
 

@@ -1,5 +1,6 @@
 """ICR-EKF: joint pose + ICR-parameter estimation (port of
-estimator/icr_ekf.py: ekf_init, ekf_predict, ekf_update).
+estimator/icr_ekf.py), with the auxiliary publisher-tick estimator and
+convergence monitor (icrekf.cpp:225-332).
 
 State x = [x, y, psi, yr, yl, xv] (icrekf.h).  Predict on each wheel
 command (vl, vr) with the exact ICR step and its Jacobian (icrekf.cpp:
@@ -9,6 +10,7 @@ toward the estimate (:68-69, :210-222).  Batched: x (B, 6), P (B, 6, 6).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -94,3 +96,121 @@ def ekf_update(st: EkfState, pose_obs, cfg: EkfConfig = EkfConfig()) -> EkfState
     KH = torch.cat([K, torch.zeros_like(K)], dim=2)      # K H, (B, 6, 6)
     eye = torch.eye(6, dtype=dtype, device=st.x.device)
     return EkfState(x=x_new, P=(eye - KH) @ st.P)
+
+
+# ---------------------------------------------------------------------------
+# auxiliary runtime estimator + convergence monitor (icrekf.cpp:225-332)
+# ---------------------------------------------------------------------------
+
+class FirstOrderFilter(NamedTuple):
+    """Discrete first-order low-pass (icrekf.h:27-50).
+
+    y[k] = b * u[k] + a * y[k-1],  a = exp(-2 pi fc / fs),  b = 1 - a.
+    Functional: carry the previous output, step returns (new_state, y).
+    The output takes the shape of the samples, so one filter serves any
+    number of lanes.
+    """
+
+    a: torch.Tensor
+    y: torch.Tensor
+
+    @staticmethod
+    def create(cutoff_hz, sampling_hz, dtype=torch.float32, device=None):
+        a = torch.exp(torch.tensor(-2.0 * math.pi * cutoff_hz / sampling_hz,
+                                   dtype=dtype, device=device))
+        return FirstOrderFilter(a=a, y=torch.zeros((), dtype=dtype,
+                                                   device=device))
+
+    def step(self, u):
+        y = (1.0 - self.a) * u + self.a * self.y
+        return self._replace(y=y), y
+
+
+class SimpleIcrState(NamedTuple):
+    """Low-passed algebraic ICR estimate (icrekf.cpp:305-330).
+
+    When |omega| is informative (> 0.1 rad/s) the ICR parameters follow
+    directly from body velocities and wheel speeds:
+        yl = (vx - v_l) / omega     (v_l = vx - yl * omega)
+        yr = (vx - v_r) / omega
+        xv = -vy / omega            (vy = -xv * omega)
+    each pushed through a first-order low-pass; otherwise the sample fed
+    to the filters is 0 (the reference publishes 0 for yl/yr/xv when
+    |omega| <= 0.1, :306-325).
+    """
+
+    f_yl: FirstOrderFilter
+    f_yr: FirstOrderFilter
+    f_xv: FirstOrderFilter
+
+    @staticmethod
+    def create(cutoff_hz=0.5, sampling_hz=100.0, dtype=torch.float32,
+               device=None):
+        def mk():
+            return FirstOrderFilter.create(cutoff_hz, sampling_hz, dtype,
+                                           device)
+        return SimpleIcrState(mk(), mk(), mk())
+
+    def step(self, vx, vy, omega, wheel_l, wheel_r, omega_eps=0.1):
+        """One publisher tick on scalars or (B,) lanes.  Returns
+        (new_state, (..., 3) [yl, yr, xv])."""
+        ok = torch.abs(omega) > omega_eps
+        w_safe = torch.where(ok, omega, torch.ones_like(omega))
+        zero = torch.zeros_like(omega)
+        raw_yl = torch.where(ok, (vx - wheel_l) / w_safe, zero)
+        raw_yr = torch.where(ok, (vx - wheel_r) / w_safe, zero)
+        raw_xv = torch.where(ok, -vy / w_safe, zero)
+        f_yl, yl = self.f_yl.step(raw_yl)
+        f_yr, yr = self.f_yr.step(raw_yr)
+        f_xv, xv = self.f_xv.step(raw_xv)
+        return SimpleIcrState(f_yl, f_yr, f_xv), torch.stack([yl, yr, xv], -1)
+
+
+class ConvergenceMonitor(NamedTuple):
+    """Per-parameter ICR convergence detector (icrekf.cpp:272-303).
+
+    A parameter is declared converged (latched) once its relative error
+    vs the ground-truth standard stays below 1% for more than 10
+    consecutive publisher ticks; the tick count at latch time is
+    recorded.  Mirrors the reference's `index_*_standard_ ++ > 10` /
+    reset-on-violation logic exactly.
+    """
+
+    count: torch.Tensor       # (..., 3) consecutive in-tolerance ticks
+    converged: torch.Tensor   # (..., 3) bool, latched
+    latch_tick: torch.Tensor  # (..., 3) tick index at convergence (-1 = not yet)
+    tick: torch.Tensor        # () running tick counter
+
+    @staticmethod
+    def create(batch_shape=(), device=None):
+        shape = (*batch_shape, 3)
+        return ConvergenceMonitor(
+            count=torch.zeros(shape, dtype=torch.int32, device=device),
+            converged=torch.zeros(shape, dtype=torch.bool, device=device),
+            latch_tick=torch.full(shape, -1, dtype=torch.int32,
+                                  device=device),
+            tick=torch.zeros((), dtype=torch.int32, device=device))
+
+    def step(self, icr_est, icr_standard, rel_tol=0.01, hold_ticks=10):
+        """icr_est, icr_standard: (..., 3) [yr, yl, xv] (state order
+        x[3:6])."""
+        std = torch.as_tensor(icr_standard, dtype=icr_est.dtype,
+                              device=icr_est.device)
+        ok = torch.abs(icr_est - std) / torch.abs(std) < rel_tol
+        # the reference increments then compares (index++ > 10): the
+        # latch fires on the (hold_ticks + 2)-th consecutive in-tolerance
+        # tick
+        count = torch.where(ok, self.count + 1, torch.zeros_like(self.count))
+        fire = ~self.converged & (count > hold_ticks + 1)
+        latch = torch.where(fire, self.tick, self.latch_tick)
+        return ConvergenceMonitor(count=count,
+                                  converged=self.converged | fire,
+                                  latch_tick=latch, tick=self.tick + 1)
+
+
+def covariance_report(st: EkfState):
+    """Publisher-tick covariance diagnostics (icrekf.cpp:262-270):
+    (pose_var (B, 3), icr_var (B, 3)), the diagonal blocks of P in state
+    order (yr, yl, xv for the ICR block)."""
+    d = torch.diagonal(st.P, dim1=-2, dim2=-1)
+    return d[..., :3], d[..., 3:6]

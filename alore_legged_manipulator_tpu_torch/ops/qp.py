@@ -1,11 +1,19 @@
-"""Batched box-constrained QP (port of ops/qp.py::box_qp_pncg_op).
+"""Batched box-constrained QP solvers (port of ops/qp.py).
 
     minimize 0.5 z' H z + g' z   s.t.  lb <= z <= ub
 
-Projected Newton with Jacobi-preconditioned CG on the free subspace and
-a projected line search over the candidates {1, a*, 1/2, 1/8} on the
-exact quadratic, first minimum wins.  H is given as an operator.  Every
-tensor has a leading lane axis: g, lb, ub, diag_h (B, n).
+* box_qp_pncg / box_qp_pncg_op: projected Newton with Jacobi-
+  preconditioned CG on the free subspace and a projected line search
+  over the candidates {1, a*, 1/2, 1/8} on the exact quadratic, first
+  minimum wins.  H is a dense matrix or an operator.
+* box_qp_projected_newton: the same outer iteration with a masked dense
+  solve for the free variables and a line search over 8 halvings.
+* box_qp_admm: OSQP-style splitting with one Cholesky factorization of
+  H + rho*I.
+
+All run a fixed number of iterations and can be warm started (z0).
+Every tensor has a leading lane axis: g, lb, ub, diag_h (B, n) and
+H (B, n, n).
 """
 from __future__ import annotations
 
@@ -16,6 +24,76 @@ from ..utils.precision import hdot
 
 def _safe(x):
     return torch.where(torch.abs(x) > 1e-30, x, torch.full_like(x, 1e-30))
+
+
+def _hmv(H, p):
+    """H @ p for H (B, n, n) and p (B, n) or (B, k, n)."""
+    if p.dim() == 2:
+        return torch.matmul(H, p[..., None])[..., 0]
+    return torch.matmul(p, H.transpose(1, 2))
+
+
+def box_qp_kkt_residual(H, g, lb, ub, z):
+    """Projected-gradient KKT residual || z - clip(z - (Hz+g)) ||_inf, (B,)."""
+    grad = _hmv(H, z) + g
+    proj = torch.minimum(torch.maximum(z - grad, lb), ub)
+    return torch.amax(torch.abs(z - proj), dim=-1)
+
+
+def box_qp_projected_newton(H, g, lb, ub, z0=None, iters: int = 12,
+                            reg: float = 1e-8):
+    """Projected Newton for strictly convex box QPs; returns z (B, n)."""
+    B, n = g.shape
+    z = torch.zeros_like(g) if z0 is None else z0
+    z = torch.minimum(torch.maximum(z, lb), ub)
+    eye = torch.eye(n, dtype=g.dtype, device=g.device)
+    alphas = 2.0 ** -torch.arange(8, dtype=g.dtype, device=g.device)
+    lanes = torch.arange(B, device=g.device)
+    for _ in range(iters):
+        grad = _hmv(H, z) + g
+        at_lb = (z <= lb) & (grad > 0)
+        at_ub = (z >= ub) & (grad < 0)
+        free = (~(at_lb | at_ub)).to(g.dtype)
+        # masked KKT: rows/cols of active variables replaced by identity
+        M = (H * (free[:, :, None] * free[:, None, :])
+             + torch.diag_embed(1.0 - free) + reg * eye)
+        dz = torch.linalg.solve(M, (-grad * free)[..., None])[..., 0]
+        # projected line search: full step, then backtrack by halves
+        zt = z[:, None, :] + alphas[None, :, None] * dz[:, None, :]
+        zt = torch.minimum(torch.maximum(zt, lb[:, None]), ub[:, None])
+        fs = 0.5 * hdot(zt, _hmv(H, zt)) + hdot(g[:, None, :], zt)
+        f0 = 0.5 * hdot(z, _hmv(H, z)) + hdot(g, z)
+        best = torch.argmin(fs, dim=1)
+        improved = fs[lanes, best] < f0
+        z = torch.where(improved[:, None], zt[lanes, best], z)
+    return z
+
+
+def box_qp_pncg(H, g, lb, ub, z0=None, iters: int = 6, cg_iters: int = 25,
+                reg: float = 1e-7):
+    """Projected Newton with CG inner solves on a dense H (B, n, n): the
+    fixed point of box_qp_projected_newton without a factorization."""
+    return box_qp_pncg_op(lambda p: _hmv(H, p),
+                          torch.diagonal(H, dim1=-2, dim2=-1), g, lb, ub,
+                          z0=z0, iters=iters, cg_iters=cg_iters, reg=reg)
+
+
+def box_qp_admm(H, g, lb, ub, z0=None, rho: float = 1.0, iters: int = 100,
+                over_relax: float = 1.6):
+    """ADMM (OSQP-style splitting) for box QPs; one factorization total."""
+    n = g.shape[-1]
+    z = torch.zeros_like(g) if z0 is None else z0
+    z = torch.minimum(torch.maximum(z, lb), ub)
+    u = torch.zeros_like(g)
+    L = torch.linalg.cholesky(
+        H + rho * torch.eye(n, dtype=g.dtype, device=g.device))
+    for _ in range(iters):
+        x = torch.cholesky_solve((-g + rho * (z - u))[..., None], L)[..., 0]
+        x_r = over_relax * x + (1.0 - over_relax) * z
+        z_new = torch.minimum(torch.maximum(x_r + u, lb), ub)
+        u = u + x_r - z_new
+        z = z_new
+    return z
 
 
 def box_qp_pncg_op(matvec, diag_h, g, lb, ub, z0=None, iters: int = 6,

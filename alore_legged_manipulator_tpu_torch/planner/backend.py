@@ -26,7 +26,7 @@ from ..core.smoothing import positive_smoothed_l1
 from ..ops.esdf import (ESDF, dist_at_cell, pack_corner_grid,
                         sample_dist_bilinear, sample_dist_bilinear_packed)
 from ..solvers.bfgs import alm_minimize, flat_lbfgs_minimize
-from ..solvers.lbfgs import LbfgsParams
+from ..solvers.lbfgs import LbfgsParams, lbfgs_minimize
 from ..solvers.minco import minco_coeffs, minco_energy
 from .flat_traj import FlatTraj
 
@@ -335,11 +335,14 @@ def _take(obj, idx):
 
 def _alm_stage(x0, flat, esdf, safe_dis, cfg: BackendConfig, alm: AlmConfig,
                time_weight):
-    """Stage-2 solve under the ALM outer loop as ONE flat loop
-    (solvers/bfgs.py alm_minimize).  time_weight: (B,)."""
-    if not cfg.flat_bfgs:
-        raise NotImplementedError("flat_bfgs=False (the nested lbfgs_minimize "
-                                  "path) is not ported yet")
+    """Stage-2 solve under the ALM outer loop (optimizer.cpp:376-418).
+    time_weight: (B,).
+
+    flat_bfgs: the whole ALM program (inner L-BFGS, multiplier updates,
+    restarts) is ONE flat loop (solvers/bfgs.py alm_minimize), and the
+    equality residual h rides along as an aux output of the cost.
+    Otherwise the reference-shaped nested loops: one `lbfgs_minimize`
+    per multiplier update, over the lanes whose outer loop still runs."""
     cfg_tw = cfg._replace(weights=cfg.weights._replace(time_weight=0.0))
     B = x0.shape[0]
     dt, dev = x0.dtype, x0.device
@@ -350,6 +353,39 @@ def _alm_stage(x0, flat, esdf, safe_dis, cfg: BackendConfig, alm: AlmConfig,
     lam0, rho0 = vec(alm.lambda0), vec(alm.rho0)
     rho_max, gamma = vec(alm.rho_max), vec(alm.gamma)
     corners = pack_corner_grid(esdf, B)     # loop-invariant
+
+    if not cfg.flat_bfgs:
+        x = x0.clone()
+        lam, rho = lam0, rho0
+        iters = torch.zeros(B, dtype=torch.int64, device=dev)
+        live = torch.ones(B, dtype=torch.bool, device=dev)
+        for _ in range(alm.max_outer):
+            idx = torch.nonzero(live).flatten()
+            if idx.numel() == 0:
+                break
+            flat_i, esdf_i = _take(flat, idx), _take(esdf, idx)
+            safe_i, tw_i, corners_i = safe_dis[idx], time_weight[idx], \
+                corners[idx]
+            lam_i, rho_i = lam[idx], rho[idx]
+
+            def fun(z):
+                def cost_with_tw(q):
+                    c, _ = stage2_cost_aux(q, flat_i, esdf_i, safe_i, lam_i,
+                                           rho_i, cfg_tw, corners_i)
+                    _, _, tau = unpack_vars(q, flat.num_pieces)
+                    return c + tw_i * torch.sum(virtual_to_real_time(tau),
+                                                dim=-1)
+                f, g, _ = _value_and_grad(cost_with_tw, z)
+                return f, g
+
+            xs, _, _, k = lbfgs_minimize(fun, x[idx], cfg.lbfgs)
+            h = final_xy_error(xs, flat_i, cfg)
+            x[idx] = xs
+            iters[idx] = iters[idx] + k
+            lam[idx] = lam_i + rho_i * h
+            rho[idx] = torch.minimum((1.0 + gamma[idx]) * rho_i, rho_max[idx])
+            live[idx] = torch.linalg.vector_norm(h, dim=-1) >= alm.tolerance
+        return x, iters
 
     def fun(z, ostate):
         lam, rho = ostate
@@ -424,8 +460,11 @@ def plan_backend(flat: FlatTraj, esdf: ESDF,
                 f, g, _ = _value_and_grad(lambda q: stage1_cost(q, flat_, cfg),
                                           z)
                 return f, g
-            xs, _, _, _ = flat_lbfgs_minimize(fun, x0_, params,
-                                              direction=cfg.solver_direction)
+            if cfg.flat_bfgs:
+                xs, _, _, _ = flat_lbfgs_minimize(
+                    fun, x0_, params, direction=cfg.solver_direction)
+            else:
+                xs, _, _, _ = lbfgs_minimize(fun, x0_, params)
             return xs
         return run
 

@@ -8,8 +8,15 @@ MINCO back-end push planning (optimizer.cpp:169-472) and the NMPC +
 ICR-EKF closed-loop push.  The JAX program vmaps one mission; here every
 tensor carries the leading fleet axis.
 
-The port covers the wavefront front end, the kinematic plant and no
-correction legs; the other options raise NotImplementedError.
+Missed legs are recovered by correction legs, either inside the fleet
+program for every lane (`correction_ticks > 0`) or afterwards for the
+missed lanes only (`correct_missed_legs`, `correct_until_delivered`),
+and `mission_seconds_exact` bills the simulated time of what really ran.
+Eager PyTorch compiles nothing, so a correction round gathers exactly
+the missed lanes, with no padding and no program cache.
+
+Only the kinematic plant is ported; plant="physics" raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -92,6 +99,38 @@ def _approach(robot, goal_xy, cfg: FleetFsmConfig, n_ticks: int):
         robot = robot + cfg.fsm_dt * torch.stack(
             [vx * torch.cos(robot[:, 2]), vx * torch.sin(robot[:, 2]), w], -1)
     return robot
+
+
+def _straight_flat(start_xy, start_yaw, goal_xy, n_pieces: int,
+                   max_vel: float) -> FlatTraj:
+    """Straight-line FlatTraj initialization (the front-end sampling
+    stand-in; jps_planner.cpp:217-257 provides this in the host
+    pipeline).  start_xy, goal_xy (B, 2); start_yaw is unused, the lane
+    starts along the line."""
+    dtype, dev = start_xy.dtype, start_xy.device
+    B = start_xy.shape[0]
+    d = goal_xy - start_xy
+    L = torch.clamp(torch.linalg.vector_norm(d, dim=-1), min=1e-3)
+    yaw = torch.atan2(d[:, 1], d[:, 0])
+    fr = torch.arange(1, n_pieces, dtype=dtype, device=dev) / n_pieces
+    inner = torch.stack([yaw[:, None].expand(B, n_pieces - 1),
+                         L[:, None] * fr], dim=1)
+    pos = torch.cat([start_xy[:, None] + fr[None, :, None] * d[:, None],
+                     goal_xy[:, None]], dim=1)
+    pos = torch.cat([pos, yaw[:, None, None].expand(B, n_pieces, 1)], dim=2)
+    total_t = torch.clamp(L / max_vel * 2.0, min=1.0)
+    z = torch.zeros_like(yaw)
+    return FlatTraj(
+        inner_yaw_s=inner,
+        init_piece_time=total_t / n_pieces,
+        inner_positions=pos,
+        start_state=torch.stack([torch.stack([yaw, z, z], -1),
+                                 torch.stack([z, z, z], -1)], 1),
+        final_state=torch.stack([torch.stack([yaw, z, z], -1),
+                                 torch.stack([L, z, z], -1)], 1),
+        start_xytheta=torch.cat([start_xy, yaw[:, None]], -1),
+        final_xytheta=torch.cat([goal_xy, yaw[:, None]], -1),
+        if_cut=torch.zeros(B, dtype=torch.bool, device=dev))
 
 
 def _wavefront_flat(esdf: ESDF, start_xy, start_yaw, goal_xy,
@@ -208,7 +247,11 @@ def _push_leg(start_xy, start_yaw, target, esdf: ESDF, true_icr: ICRParams,
     Polynome handoff -> NMPC + EKF closed-loop tracking.  Returns
     (obj_final (B, 3), track_err_max, plan_err, collision, traj)."""
     dtype = start_xy.dtype
-    flat = _wavefront_flat(esdf, start_xy, start_yaw, target, cfg)
+    if cfg.frontend_mode == "wavefront":
+        flat = _wavefront_flat(esdf, start_xy, start_yaw, target, cfg)
+    else:
+        flat = _straight_flat(start_xy, start_yaw, target, cfg.n_pieces,
+                              cfg.backend.max_vel)
     res = plan_backend(flat, esdf, cfg.backend)
     B = start_xy.shape[0]
     icr_vec = torch.tensor([float(true_icr.yr), float(true_icr.yl),
@@ -229,13 +272,13 @@ def _push_leg(start_xy, start_yaw, target, esdf: ESDF, true_icr: ICRParams,
 
 
 def _check_supported(cfg: MissionFleetConfig):
-    if cfg.frontend_mode != "wavefront":
-        raise NotImplementedError(
-            f"frontend_mode={cfg.frontend_mode!r} is not ported yet")
     if cfg.plant != "kinematic":
         raise NotImplementedError(f"plant={cfg.plant!r} is not ported yet")
-    if cfg.correction_ticks > 0:
-        raise NotImplementedError("correction_ticks > 0 is not ported yet")
+
+
+def _esdf_on(esdf: ESDF, dev) -> ESDF:
+    return ESDF(dist=esdf.dist.to(dev), lower=esdf.lower.to(dev),
+                res=esdf.res.to(dev))
 
 
 def run_mission(items, targets, robot_start, esdf: ESDF,
@@ -248,6 +291,11 @@ def run_mission(items, targets, robot_start, esdf: ESDF,
     robot_start (a tensor, or a numpy array) sets the fleet's dtype.
     Runs on the card unless `device` says otherwise (device=None means
     CUDA and raises when it is missing).
+
+    With cfg.correction_ticks > 0 every lane replans from its realized
+    object pose and tracks a second, short leg (the fleet-program twin
+    of the reference FSM's replan-until-within-tolerance); its outcome
+    applies only to the lanes whose main leg missed deliver_tol.
     """
     _check_supported(cfg)
     dev = resolve_device(device)
@@ -256,8 +304,7 @@ def run_mission(items, targets, robot_start, esdf: ESDF,
     items = torch.as_tensor(items).to(device=dev, dtype=dtype)
     targets = torch.as_tensor(targets).to(device=dev, dtype=dtype)
     robot = torch.as_tensor(robot_start).to(device=dev, dtype=dtype)
-    esdf = ESDF(dist=esdf.dist.to(dev), lower=esdf.lower.to(dev),
-                res=esdf.res.to(dev))
+    esdf = _esdf_on(esdf, dev)
     K = items.shape[1]
     errs, dels, perrs, colls, tmaxs, trajs = [], [], [], [], [], []
     obj_pos = [items[:, j] for j in range(K)]
@@ -276,6 +323,18 @@ def run_mission(items, targets, robot_start, esdf: ESDF,
             obj_final, tmax, perr, coll, traj = _push_leg(
                 item, robot[:, 2], target, leg_esdf, true_icr, cfg,
                 cfg.push_ticks, seed + k)
+            if cfg.correction_ticks > 0:
+                # a delivered object is RELEASED (the FSM never replans
+                # it): the correction result applies to missed lanes only
+                ok1 = torch.linalg.vector_norm(
+                    obj_final[:, :2] - target, dim=-1) < cfg.deliver_tol
+                obj2, tmax2, perr2, coll2, _ = _push_leg(
+                    obj_final[:, :2], obj_final[:, 2], target, leg_esdf,
+                    true_icr, cfg, cfg.correction_ticks, seed + K + k)
+                obj_final = torch.where(ok1[:, None], obj_final, obj2)
+                tmax = torch.where(ok1, tmax, torch.maximum(tmax, tmax2))
+                perr = torch.where(ok1, perr, torch.maximum(perr, perr2))
+                coll = torch.where(ok1, coll, coll | coll2)
             err = torch.linalg.vector_norm(obj_final[:, :2] - target, dim=-1)
             errs.append(err)
             dels.append(err < cfg.deliver_tol)
@@ -314,11 +373,143 @@ def spaced_scenarios(B, K, rng, item_x=(1.0, 2.5), target_x=(5.5, 7.0),
     return sample_side(*item_x), sample_side(*target_x)
 
 
-def correct_missed_legs(*args, **kwargs):
-    """Host re-dispatch of correction legs: not ported yet."""
-    raise NotImplementedError("correct_missed_legs is not ported yet")
+def correct_missed_legs(result: MissionFleetResult, targets, esdf: ESDF,
+                        true_icr: ICRParams, cfg: MissionFleetConfig,
+                        correction_ticks: int, seed: int = 0):
+    """Re-dispatch correction legs for ONLY the missed lanes (the cheap
+    alternative to `correction_ticks > 0`, which plans and tracks the
+    second leg for every lane).
+
+    After the fleet program returns, the legs whose objects missed
+    `deliver_tol` are gathered into one batch of exactly M lanes, one
+    plan + track correction runs on those, and the outcomes scatter
+    back: the cost follows the miss rate.  Gather and scatter stay on
+    the device of `result`; the one host read is the list of missed
+    lanes.
+
+    The correction runs post-mission, so every other object paints at
+    its FINAL realized pose, the corrected one excluded.  A delivered
+    lane keeps every field bit for bit.  A corrected lane reports the
+    corrected error, the larger tracking error, the OR of the collision
+    flags, and the last sample of its `push_traj` moves to the corrected
+    pose, which is where an iterated round starts from; `plan_err`,
+    `robot_final` and the rest of `push_traj` stay as the fleet program
+    reported them.
+
+    All corrected lanes share one noise generator seeded with
+    `seed + 10_000` (the JAX package seeds lane i with
+    `seed + 10_000 + i`; its `jax.random` streams are not reproduced
+    here in any case, and parity runs switch the plant noise off).
+
+    result / targets may carry a leading fleet axis or be one mission.
+    Returns (new_result, n_corrected).
+    """
+    _check_supported(cfg)
+    set_precision_policy()
+    batched = result.object_err.dim() == 2
+    r = result if batched else MissionFleetResult(*(a[None] for a in result))
+    dev, dtype = r.object_err.device, r.object_err.dtype
+    targets_b = torch.as_tensor(targets).to(device=dev, dtype=dtype)
+    if not batched:
+        targets_b = targets_b[None]
+    K = r.object_err.shape[1]
+
+    lanes = torch.nonzero(~r.delivered)                 # (M, 2), host read
+    M = lanes.shape[0]
+    if M == 0:
+        return result, 0
+    b_idx, k_idx = lanes[:, 0], lanes[:, 1]
+    finals = r.push_traj[:, :, -1, :]                   # (B, K, 3)
+    starts = finals[b_idx, k_idx]                       # (M, 3)
+    tgts = targets_b[b_idx, k_idx]                      # (M, 2)
+    esdf = _esdf_on(esdf, dev)
+    if K > 1:
+        # other objects at their FINAL poses, the corrected one excluded
+        # (painted whatever cfg.paint_objects says, as the JAX package)
+        j = torch.arange(K - 1, device=dev)[None, :]
+        oth_idx = j + (j >= k_idx[:, None]).to(j.dtype)          # (M, K-1)
+        others = finals[b_idx[:, None], oth_idx, :2]             # (M, K-1, 2)
+        leg_esdf = _painted_esdf(esdf, others, cfg.paint_half_extents)
+    else:
+        leg_esdf = esdf
+
+    with torch.no_grad():
+        obj2, tmax2, _, coll2, _ = _push_leg(
+            starts[:, :2], starts[:, 2], tgts, leg_esdf, true_icr, cfg,
+            correction_ticks, seed + 10_000)
+    err2 = torch.linalg.vector_norm(obj2[:, :2] - tgts, dim=-1)
+
+    oe, de = r.object_err.clone(), r.delivered.clone()
+    te, co = r.track_err_max.clone(), r.collision.clone()
+    pt = r.push_traj.clone()
+    oe[b_idx, k_idx] = err2
+    de[b_idx, k_idx] = err2 < cfg.deliver_tol
+    te[b_idx, k_idx] = torch.maximum(te[b_idx, k_idx], tmax2)
+    co[b_idx, k_idx] = co[b_idx, k_idx] | coll2
+    pt[b_idx, k_idx, -1, :] = obj2
+    out = r._replace(object_err=oe, delivered=de, track_err_max=te,
+                     collision=co, push_traj=pt)
+    if not batched:
+        out = MissionFleetResult(*(a[0] for a in out))
+    return out, M
 
 
-def correct_until_delivered(*args, **kwargs):
-    """Iterated correction rounds: not ported yet."""
-    raise NotImplementedError("correct_until_delivered is not ported yet")
+def correct_until_delivered(result: MissionFleetResult, targets, esdf: ESDF,
+                            true_icr: ICRParams, cfg: MissionFleetConfig,
+                            correction_ticks: int, max_rounds: int = 3,
+                            seed: int = 0):
+    """Iterate correction rounds until every leg delivers or `max_rounds`
+    is exhausted: the reference FSM's replan-until-within-tolerance loop
+    (b2z1_object_fsm.py:752-822 OBJECT_TRACKING re-entry;
+    plan_manager.hpp:556-712 REPLAN).
+
+    Each round gathers ONLY the still-missed lanes, replans from the
+    object's CURRENT pose (the previous round's corrected final) and
+    uses a fresh tracking seed, `seed + 50_000 * (round + 1)`, so a
+    marginal failure is not replayed verbatim.  Returns (result,
+    miss_counts): miss_counts[i] is the number of legs that ran a
+    correction in round i; feed it to mission_seconds_exact.
+    """
+    miss_counts = []
+    for rnd in range(max_rounds):
+        result, m = correct_missed_legs(
+            result, targets, esdf, true_icr, cfg, correction_ticks,
+            seed=seed + 50_000 * (rnd + 1))
+        if m == 0:
+            break
+        miss_counts.append(m)
+    return result, miss_counts
+
+
+def mission_seconds_exact(result: MissionFleetResult,
+                          cfg: MissionFleetConfig, correction_ticks: int,
+                          miss_counts=None) -> float:
+    """Simulated seconds for a fleet that used correct_missed_legs: base
+    phases for every leg + correction ticks only where a leg actually
+    ran a correction.
+
+    miss_counts: per-round correction counts from
+    correct_until_delivered (each round bills its own misses).  When
+    None, `result` must be the PRE-correction fleet result and one round
+    is billed per pre-correction miss."""
+    de = result.delivered
+    n_legs = int(de.numel())
+    if miss_counts is None:
+        n_corrections = int((~de).sum())
+    else:
+        n_corrections = int(sum(miss_counts))
+    base = ((cfg.approach_ticks + cfg.grasp_ticks + cfg.release_ticks)
+            * cfg.fsm.fsm_dt + cfg.push_ticks * cfg.loop.nmpc.dt)
+    return (base * n_legs
+            + correction_ticks * cfg.loop.nmpc.dt * n_corrections)
+
+
+def mission_seconds(cfg: MissionFleetConfig, n_objects: int) -> float:
+    """Simulated real-time seconds one mission models (executive phases
+    at fsm_dt, push tracking at the NMPC dt).  An UPPER BOUND when
+    correction_ticks > 0: the correction leg is counted for every
+    object, though only missed lanes spend that time."""
+    per = ((cfg.approach_ticks + cfg.grasp_ticks + cfg.release_ticks)
+           * cfg.fsm.fsm_dt
+           + (cfg.push_ticks + cfg.correction_ticks) * cfg.loop.nmpc.dt)
+    return per * n_objects

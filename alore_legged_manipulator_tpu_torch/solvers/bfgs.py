@@ -1,13 +1,22 @@
-"""Flat one-eval-per-trip L-BFGS / ALM solvers (port of solvers/bfgs.py,
-direction="ring").
+"""Flat one-eval-per-trip BFGS / L-BFGS / ALM solvers (port of
+solvers/bfgs.py).
 
 Same outer semantics as the reference optimizer (gcopter/lbfgs.hpp:
 440-751): weak-Wolfe Lewis-Overton search with its fast exit, the
-cautious update gate, the g_epsilon / past-delta tests, and the
-two-loop recursion over an m-slot ring of (s, y) pairs with the
-per-iteration gamma rescale.  Line search and iteration advance are one
-flat state machine (each trip evaluates the cost once), and the ALM
-outer loop lives in the same machine (`alm_minimize`).
+cautious update gate and the g_epsilon / past-delta tests.  Line search
+and iteration advance are one flat state machine (each trip evaluates
+the cost once), and the ALM outer loop lives in the same machine
+(`alm_minimize`).  Three search directions:
+
+* ``ring``: the two-loop recursion over an m-slot ring of (s, y) pairs
+  with the per-iteration gamma rescale (lbfgs.hpp:709-739).
+* ``compact``: the same operator in the Byrd-Nocedal-Schnabel compact
+  inverse form.  The pairs sit in chronological rows, Y^T Y and the
+  explicit R^{-1} are kept up to date per accepted pair, and a
+  direction is about ten small matvecs of constant depth.  A trip reads
+  nothing back to the host but the loop condition.
+* ``dense``: the full inverse Hessian, one (n, n) matvec and three
+  outer products per trip; for smooth, well-scaled problems only.
 
 Batching: every state tensor has a leading lane axis.  The loop runs
 while any lane is active; a finished lane is frozen by select, exactly
@@ -15,7 +24,9 @@ as the JAX while_loop runs under vmap, so each lane's iterates are what
 that lane gets alone.  The two-loop recursion runs over the ring in
 newest-first order up to the largest live pair count in the batch; the
 slots past a lane's own count are exact no-ops for that lane, as in the
-JAX loop over all m slots.
+JAX loop over all m slots.  Every contraction is an elementwise product
+and a sum over one axis, so a lane's numbers do not depend on which
+other lanes share its batch.
 
 Statuses: 0 converged / 1 past-delta stop / 2 max iterations /
 -1 line-search failure.
@@ -28,7 +39,7 @@ import torch
 
 from ..utils.precision import hdot
 from .lbfgs import (LbfgsParams, STATUS_CONVERGED, STATUS_LS_FAIL,
-                    STATUS_MAXITER, STATUS_STOP)
+                    STATUS_MAXITER, STATUS_STOP, two_loop_direction)
 
 
 def _sel(mask, a, b):
@@ -41,14 +52,14 @@ def _sel(mask, a, b):
     return torch.where(m, a, b)
 
 
-def _newest_first(buf, end, m: int, nb: int):
-    """buf (B, m, ...) ring slots reordered newest first, first nb slots."""
-    B = buf.shape[0]
-    pos = torch.arange(nb, device=buf.device)
-    order = torch.remainder(end[:, None] - 1 - pos[None, :], m)   # (B, nb)
-    idx = order.reshape(B, nb, *([1] * (buf.dim() - 2))).expand(
-        B, nb, *buf.shape[2:])
-    return torch.gather(buf, 1, idx)
+def _mv(A, v):
+    """Batched A @ v: A (B, r, c), v (B, c) -> (B, r)."""
+    return torch.sum(A * v[:, None, :], dim=-1)
+
+
+def _mtv(A, w):
+    """Batched A.T @ w: A (B, r, c), w (B, r) -> (B, c)."""
+    return torch.sum(A * w[:, :, None], dim=1)
 
 
 def _flat_minimize(fun, x0, params: LbfgsParams, direction, ostate0,
@@ -58,13 +69,16 @@ def _flat_minimize(fun, x0, params: LbfgsParams, direction, ostate0,
     outer_update(ostate, x, aux) -> (ostate', outer_done (B,) bool).
     Returns the final state dict.
     """
-    if direction != "ring":
-        raise NotImplementedError(
-            f"direction={direction!r}: only the 'ring' two-loop direction is "
-            "ported; 'compact' and 'dense' are not yet")
+    if direction not in ("dense", "ring", "compact"):
+        raise ValueError(f"unknown direction {direction!r}; "
+                         "expected 'dense', 'ring' or 'compact'")
+    dense = direction == "dense"
+    compact = direction == "compact"
     p = params
     B, n = x0.shape
     m = p.mem_size
+    lm = 0 if dense else m          # rows of the (s, y) store
+    cm = m if compact else 0        # side of Y^T Y and R^{-1}
     past = max(p.past, 1)
     dtype, dev = x0.dtype, x0.device
     max_iter = p.max_iterations if p.max_iterations > 0 else p.hard_iter_cap
@@ -78,6 +92,11 @@ def _flat_minimize(fun, x0, params: LbfgsParams, direction, ostate0,
     already = (torch.amax(g0.abs(), -1)
                / torch.clamp(torch.amax(x0.abs(), -1), min=1.0)) < p.g_epsilon
 
+    eye = torch.eye(n, dtype=dtype, device=dev).expand(B, n, n)
+    idxs = torch.arange(m, device=dev)
+    not_last = (idxs < m - 1).to(dtype)
+    not_last2 = not_last[:, None] * not_last[None, :]
+
     def fresh_pf(f):
         pf = torch.full((B, past), float("inf"), dtype=dtype, device=dev)
         pf[:, 0] = f
@@ -90,12 +109,18 @@ def _flat_minimize(fun, x0, params: LbfgsParams, direction, ostate0,
                                    min=1e-30),
             dginit=-hdot(g, g), mu=zf, nu=torch.full_like(zf, p.max_step),
             brackt=fb, touched=fb, ls_iters=zi,
-            lm_s=torch.zeros((B, m, n), dtype=dtype, device=dev),
-            lm_y=torch.zeros((B, m, n), dtype=dtype, device=dev),
-            lm_ys=torch.ones((B, m), dtype=dtype, device=dev),
-            end=zi, bound=zi, k=zi + 1, pf=fresh_pf(f))
+            first_update=~fb,
+            lm_s=torch.zeros((B, lm, n), dtype=dtype, device=dev),
+            lm_y=torch.zeros((B, lm, n), dtype=dtype, device=dev),
+            lm_ys=torch.ones((B, lm), dtype=dtype, device=dev),
+            end=zi, bound=zi,
+            cYtY=torch.zeros((B, cm, cm), dtype=dtype, device=dev),
+            cRinv=torch.zeros((B, cm, cm), dtype=dtype, device=dev),
+            k=zi + 1, pf=fresh_pf(f))
 
-    s = dict(restart_fields(f0, g0), x=x0, aux=aux0, k_total=zi, evals=zi,
+    H_init = eye if dense else torch.zeros((B, 0, 0), dtype=dtype, device=dev)
+    s = dict(restart_fields(f0, g0), x=x0, aux=aux0, H=H_init,
+             k_total=zi, evals=zi,
              status=torch.where(already, STATUS_CONVERGED, STATUS_MAXITER),
              ostate=ostate0, outer=zi, reinit=fb,
              done=already & (max_outer == 1))
@@ -111,7 +136,7 @@ def _flat_minimize(fun, x0, params: LbfgsParams, direction, ostate0,
 
         # ============ restart-evaluation trip ============
         re = dict(restart_fields(f_new, g_new), x=s["x"], aux=aux_new,
-                  k_total=s["k_total"], evals=evals, status=s["status"],
+                  H=H_init, k_total=s["k_total"], evals=evals, status=s["status"],
                   ostate=s["ostate"], outer=s["outer"], reinit=fb, done=fb)
 
         # ============ normal trip ============
@@ -166,44 +191,100 @@ def _flat_minimize(fun, x0, params: LbfgsParams, direction, ostate0,
         use = accept & (ys > cau) & ~finished
         gamma = ys / torch.clamp(yy, min=1e-30)
 
-        # ring buffer + two-loop recursion (lbfgs.hpp:709-739); the model
-        # only changes on a used (hence accepted) step
-        end = s["end"]
-        lm_s = s["lm_s"].clone()
-        lm_y = s["lm_y"].clone()
-        lm_ys = s["lm_ys"].clone()
-        lm_s[lanes, end] = torch.where(use[:, None], s_vec, lm_s[lanes, end])
-        lm_y[lanes, end] = torch.where(use[:, None], y_vec, lm_y[lanes, end])
-        lm_ys[lanes, end] = torch.where(use, ys, lm_ys[lanes, end])
-        bound = torch.where(use, torch.clamp(s["bound"] + 1, max=m),
-                            s["bound"])
-        end = torch.where(use, torch.remainder(end + 1, m), end)
+        one = torch.ones_like(gamma)
+        H, first_update = s["H"], s["first_update"]
+        lm_s, lm_y, lm_ys = s["lm_s"], s["lm_y"], s["lm_ys"]
+        end, bound = s["end"], s["bound"]
+        cYtY, cRinv = s["cYtY"], s["cRinv"]
+        if dense:
+            # BFGS inverse update (first accepted pair rescales H0)
+            H0 = torch.where(first_update[:, None, None],
+                             gamma[:, None, None] * eye, H)
+            rho_i = 1.0 / torch.clamp(ys, min=1e-30)
+            Hy = _mv(H0, y_vec)
+            yHy = hdot(y_vec, Hy)
+            sHy = s_vec[:, :, None] * Hy[:, None, :]
+            H_new = (H0 - rho_i[:, None, None] * (sHy + sHy.transpose(1, 2))
+                     + (rho_i + rho_i * rho_i * yHy)[:, None, None]
+                     * (s_vec[:, :, None] * s_vec[:, None, :]))
+            H = torch.where(use[:, None, None], H_new, H)
+            first_update = first_update & ~use
+            d_new = torch.where(first_update[:, None], -g_new, -_mv(H, g_new))
+        elif compact:
+            # Compact inverse form (Byrd-Nocedal-Schnabel 1994):
+            #   H = gI + [S gY] W [S^T; gY^T],
+            #   W = [[R^{-T}(D + g Y^TY)R^{-1}, -R^{-T}], [-R^{-1}, 0]]
+            # with S, Y the stored pairs in CHRONOLOGICAL row order
+            # [0, bound), D = diag(s_i^T y_i) and R the upper-triangular
+            # part of S^T Y.  Appending a pair is one matvec and a column
+            # write; dropping the oldest uses the fact that the inverse
+            # of R without its first row and column is exactly the
+            # trailing block of R^{-1}.
+            is_full = bound >= m
+            full3 = is_full[:, None, None]
+            ys_safe = torch.clamp(ys, min=1e-30)
+            S1 = torch.where(full3, torch.roll(lm_s, -1, 1), lm_s)
+            Y1 = torch.where(full3, torch.roll(lm_y, -1, 1), lm_y)
+            ys1 = torch.where(is_full[:, None], torch.roll(lm_ys, -1, 1),
+                              lm_ys)
+            YtY1 = torch.where(full3, torch.roll(cYtY, (-1, -1), (1, 2)),
+                               cYtY)
+            R1 = torch.where(
+                full3, torch.roll(cRinv, (-1, -1), (1, 2)) * not_last2, cRinv)
+            idx = torch.where(is_full, torch.full_like(bound, m - 1), bound)
 
-        nb = int(bound.max())
-        d_new = -g_new
-        if nb > 0:
-            S = _newest_first(lm_s, end, m, nb)
-            Y = _newest_first(lm_y, end, m, nb)
-            YS = _newest_first(lm_ys, end, m, nb)
-            alphas = []
-            for i in range(nb):
-                valid = i < bound
-                a = torch.where(valid, hdot(S[:, i], d_new) / YS[:, i], zf)
-                d_new = d_new - a[:, None] * Y[:, i]
-                alphas.append(a)
-            gscale = torch.where(use, gamma, torch.ones_like(gamma))
-            d_new = d_new * torch.where(bound > 0, gscale,
-                                        torch.ones_like(gscale))[:, None]
-            for q in range(nb - 1, -1, -1):
-                valid = q < bound
-                beta = torch.where(valid, hdot(Y[:, q], d_new) / YS[:, q], zf)
-                d_new = d_new + (alphas[q] - beta)[:, None] * S[:, q]
-            d_new = torch.where((bound > 0)[:, None], d_new, -g_new)
+            S1[lanes, idx] = s_vec
+            Y1[lanes, idx] = y_vec
+            ys1[lanes, idx] = ys
+            ycol = _mv(Y1, y_vec)               # rows > idx are zero rows
+            YtY1[lanes, idx, :] = ycol
+            YtY1[lanes, :, idx] = ycol
+            r = _mv(S1, y_vec) * (idxs[None, :] < idx[:, None]).to(dtype)
+            c = -_mv(R1, r) / ys_safe[:, None]  # rows >= idx of R1 are zero
+            c[lanes, idx] = 1.0 / ys_safe
+            R1[lanes, :, idx] = c
+
+            use3 = use[:, None, None]
+            lm_s = torch.where(use3, S1, lm_s)
+            lm_y = torch.where(use3, Y1, lm_y)
+            lm_ys = torch.where(use[:, None], ys1, lm_ys)
+            cYtY = torch.where(use3, YtY1, cYtY)
+            cRinv = torch.where(use3, R1, cRinv)
+            bound = torch.where(use, torch.clamp(bound + 1, max=m), bound)
+
+            # d = -(g*g_new + S w - g*Y u): ring-mode gamma semantics
+            # (rescale only on the trip that stored a pair)
+            gam = torch.where(use, gamma, one)[:, None]
+            u = _mv(cRinv, _mv(lm_s, g_new))
+            t = lm_ys * u + gam * _mv(cYtY, u) - gam * _mv(lm_y, g_new)
+            w = _mtv(cRinv, t)
+            Hg = gam * g_new + _mtv(lm_s, w) - gam * _mtv(lm_y, u)
+            d_new = torch.where((bound > 0)[:, None], -Hg, -g_new)
+        else:
+            # ring buffer + two-loop recursion (lbfgs.hpp:709-739); the
+            # model only changes on a used (hence accepted) step
+            lm_s, lm_y, lm_ys = lm_s.clone(), lm_y.clone(), lm_ys.clone()
+            lm_s[lanes, end] = torch.where(use[:, None], s_vec,
+                                           lm_s[lanes, end])
+            lm_y[lanes, end] = torch.where(use[:, None], y_vec,
+                                           lm_y[lanes, end])
+            lm_ys[lanes, end] = torch.where(use, ys, lm_ys[lanes, end])
+            bound = torch.where(use, torch.clamp(bound + 1, max=m), bound)
+            end = torch.where(use, torch.remainder(end + 1, m), end)
+            d_new = two_loop_direction(lm_s, lm_y, lm_ys, end, bound, g_new,
+                                       torch.where(use, gamma, one), m)
 
         dginit_new = hdot(g_new, d_new)
         descent_bad = dginit_new >= 0.0
         d_new = torch.where(descent_bad[:, None], -g_new, d_new)
         dginit_new = torch.where(descent_bad, -hdot(g_new, g_new), dginit_new)
+        if dense:
+            # the model may only change on an accepted step (the trial
+            # point is otherwise a mid-line-search point)
+            H = torch.where((accept & descent_bad)[:, None, None], eye, H)
+            H = torch.where(accept[:, None, None], H, s["H"])
+            first_update = torch.where(accept, first_update | descent_bad,
+                                       s["first_update"])
 
         evals_out = evals >= max_evals
         inner_done = ls_fail | (accept & finished)
@@ -235,7 +316,9 @@ def _flat_minimize(fun, x0, params: LbfgsParams, direction, ostate0,
             nu=torch.where(accept, torch.full_like(nu_n, p.max_step), nu_n),
             brackt=~accept & brackt_n, touched=~accept & touched_n,
             ls_iters=torch.where(accept, zi, ls_iters),
+            H=H, first_update=first_update,
             lm_s=lm_s, lm_y=lm_y, lm_ys=lm_ys, end=end, bound=bound,
+            cYtY=cYtY, cRinv=cRinv,
             k=torch.where(accept, s["k"] + 1, s["k"]),
             k_total=torch.where(accept, s["k_total"] + 1, s["k_total"]),
             evals=evals,
@@ -250,12 +333,11 @@ def _flat_minimize(fun, x0, params: LbfgsParams, direction, ostate0,
     return s
 
 
-def flat_lbfgs_minimize(fun: Callable, x0,
-                        params: LbfgsParams = LbfgsParams(),
-                        direction: str = "ring"):
-    """L-BFGS iterates in the flat one-eval-per-trip loop.  Minimizes
-    fun: x (B, n) -> (f (B,), grad (B, n)); returns (x, f, status,
-    n_iters) per lane."""
+def bfgs_minimize(fun: Callable, x0, params: LbfgsParams = LbfgsParams(),
+                  direction: str = "dense"):
+    """Minimize fun: x (B, n) -> (f (B,), grad (B, n)).  Returns (x, f,
+    status, n_iters) per lane; `n_iters` counts accepted iterations
+    (line-search evaluations excluded), as lbfgs_minimize's counter."""
     def fun2(x, _):
         f, g = fun(x)
         return f, g, ()
@@ -266,6 +348,15 @@ def flat_lbfgs_minimize(fun: Callable, x0,
 
     out = _flat_minimize(fun2, x0, params, direction, (), no_outer, 1)
     return out["x"], out["f"], out["status"], out["k"]
+
+
+def flat_lbfgs_minimize(fun: Callable, x0,
+                        params: LbfgsParams = LbfgsParams(),
+                        direction: str = "ring"):
+    """L-BFGS iterates in the flat one-eval-per-trip loop.
+    direction='compact' swaps the two-loop recursion for the compact
+    inverse form: the same operator at constant depth per trip."""
+    return bfgs_minimize(fun, x0, params, direction=direction)
 
 
 def alm_minimize(fun: Callable, x0, ostate0, outer_update,

@@ -1,5 +1,5 @@
 """Closed-loop diff-drive plant with ICR slip, rate limits and noise
-(port of world/plant.py: plant_init, plant_step).
+(port of world/plant.py).
 
 Rebuild of the reference 2-D simulator node (simulator.h:103-360):
 wheel command -> desired (v, omega, vy) through the true ICR,
@@ -73,3 +73,47 @@ def plant_step(st: PlantState, wheel_cmd, icr: ICRParams, dt,
     y = y + vy * dt * torch.cos(th)
     return PlantState(xytheta=torch.stack([x, y, th], dim=-1), v=v, omega=w,
                       vy=vy, s=st.s + v * dt)
+
+
+def plant_wheel_feedback(st: PlantState, icr: ICRParams):
+    """Wheel odometry the plant publishes (simulator.h:345-346), (B, 2)
+    columns (vl, vr)."""
+    vl = st.v - st.omega * icr.yl
+    vr = st.v - st.omega * icr.yr
+    return torch.stack([vl, vr], dim=-1)
+
+
+def plant_step_mpc_tick(st: PlantState, cmd_v, cmd_w, cfg: PlantConfig,
+                        substeps: int = 5, dt: float = 0.002) -> PlantState:
+    """One 100 Hz control period of the plant under the (v, omega)
+    CarState command path, the composition planner_sim.launch wires
+    (LTV MPC cmd -> /simulation/PoseSub).
+
+    PoseSubCallback (simulator.h:203-231) adopts the commanded (v, omega)
+    INSTANTLY; desired_(v, omega) are only written by ControlSubCallback,
+    which this launch never feeds, so every 500 Hz StatePropaCallback
+    between command receipts rate-limits the velocity toward ZERO by
+    max_acc * Pose_pub_rate_ (the publish-interval quirk, :246-262).
+    Net effect per 10 ms tick: v := cmd, then 5 x (decay by 0.02 / 0.04,
+    integrate 2 ms).  cmd_v, cmd_w: (B,) or floats.
+    """
+    dtype, dev = st.xytheta.dtype, st.xytheta.device
+    v = torch.as_tensor(cmd_v, dtype=dtype, device=dev).expand(st.v.shape)
+    w = torch.as_tensor(cmd_w, dtype=dtype, device=dev).expand(st.v.shape)
+    lim_dt = dt if cfg.rate_limit_dt is None else cfg.rate_limit_dt
+    dv = cfg.max_acc * lim_dt
+    dw = cfg.max_domega * lim_dt
+    x, y, th = st.xytheta.unbind(-1)
+    s = st.s
+    for _ in range(substeps):
+        # StatePropa toward desired = 0 (:246-262)
+        v = torch.where(torch.abs(v) >= dv, v - dv * torch.sign(v),
+                        torch.zeros_like(v))
+        w = torch.where(torch.abs(w) >= dw, w - dw * torch.sign(w),
+                        torch.zeros_like(w))
+        x = x + v * dt * torch.cos(th)
+        y = y + v * dt * torch.sin(th)
+        th = th + w * dt
+        s = s + v * dt
+    return PlantState(xytheta=torch.stack([x, y, th], dim=-1), v=v, omega=w,
+                      vy=st.vy, s=s)

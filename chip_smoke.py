@@ -18,15 +18,27 @@ Phases, each printing lines of its own:
    cells, and a 150x150 grid; a 162x162 grid, the first square one that
    fits no block, must be refused with ValueError.  The runtime's
    occupancy report is printed for each instantiation used.
-3. The mission fleet on the card at full width: B=64 three-object
-   missions on the 80x80 map (wavefront front end, MINCO back end,
-   NMPC + ICR-EKF closed-loop push), driven through `run_mission`, and
-   the fleet's first-leg field once more through the public
-   `octile_distance_field` (K2).  The kernels' launch counts are set to 0
-   just before and read just after; both kernels must have run.  A small
-   fleet is also run on the CPU through the plain versions, and its front
-   end and deliveries are compared.
-4. The `kernels` JSON line, and as the last line
+3. The production mission on the card at full width: B=64 three-object
+   missions on the 80x80 map (wavefront front end, MINCO back end with
+   the compact solver direction, NMPC + ICR-EKF closed-loop push) through
+   `run_mission`, then `correct_until_delivered` with 300-tick correction
+   legs for the missed lanes and `mission_seconds_exact`, and the fleet's
+   first-leg field once more through the public `octile_distance_field`
+   (K2).  The kernels' launch counts are set to 0 just before and read
+   just after: K1 must have run once per leg and once per correction
+   round, K2 once.  Lanes delivered before the rounds must come out of
+   them bit for bit.
+4. The ring-direction fleet of the first slice, cut in depth to K=1 (B=64,
+   no corrections), with its own launch counts; the host wall time of each
+   phase of the production fleet's first leg, with the ring back end on
+   the same leg beside the compact one; and a small fleet on the card
+   through the kernel and on the CPU through the plain versions, compared
+   on front end and deliveries.
+5. Variants on the card at B=64, N=50: the NMPC tick in its dense
+   triangular, assoc and seq modes against the matrix-free path, a
+   32-piece spline by cyclic reduction against the dense 6N system, and
+   the ring, compact and dense solver directions on a batched quadratic.
+6. The `kernels` JSON line, and as the last line
    {"ok": true, "device": {...}}.
 
 Fails (non-zero exit, no result line) without a CUDA card or without the
@@ -176,11 +188,143 @@ def leg_phases(mf, items, targets, robot0, esdf, icr, cfg):
             icr=icr_vec), n_grid=256))
         timed("closed_loop", lambda: simulate_tracking(
             tt, icr, cfg.push_ticks, cfg.loop, seed=0, x0=tt.seq[:, 0]))
+        # the ring direction on the very same leg (not part of the total)
+        res_ring = timed("back_end_ring", lambda: plan_backend(
+            flat, leg_esdf,
+            cfg.backend._replace(solver_direction="ring")))
+    ring_s = times.pop("back_end_ring")
     total = sum(times.values())
     print("first-leg phases (s): " + json.dumps(
         {**times, "leg_total": total,
+         "solver_direction": cfg.backend.solver_direction,
          "back_end_stage2_iters_max": int(res.stage2_iters.max()),
-         "back_end_replans_max": int(res.replans.max())}), flush=True)
+         "back_end_replans_max": int(res.replans.max()),
+         "back_end_ring": ring_s,
+         "back_end_ring_stage2_iters_max": int(res_ring.stage2_iters.max()),
+         "back_end_ring_replans_max": int(res_ring.replans.max())}),
+        flush=True)
+
+
+def mission_field_through_k2(wf, esdf, targets32, cfg, B):
+    """The field alone, as a user asks for it: the first leg's targets on
+    the mission's inflated map through the public entry point (K2).
+    Returns the field and its inputs."""
+    blk_m = (esdf.dist < cfg.wf_safe_dis).expand(B, 80, 80).contiguous()
+    goal_m = torch.clamp(torch.as_tensor(targets32[:, 0] / 0.1,
+                                         device="cuda").to(torch.int32),
+                         0, 79)
+    field_m = wf.octile_distance_field(blk_m, goal_m)
+    torch.cuda.synchronize()
+    return field_m, blk_m, goal_m
+
+
+def fleet_summary(res):
+    err = res.object_err
+    return {
+        "delivered_frac": float(res.delivered.float().mean()),
+        "delivered_per_leg": res.delivered.sum(0).tolist(),
+        "object_err_mean": float(err.mean()),
+        "object_err_max": float(err.max()),
+        "plan_err_max": float(res.plan_err.max()),
+        "collision_frac": float(res.collision.float().mean()),
+        "track_err_max": float(res.track_err_max.max())}
+
+
+def assert_finite(res, shape_bk, push_ticks):
+    B, K = shape_bk
+    assert res.object_err.shape == (B, K) and res.push_traj.shape == \
+        (B, K, push_ticks, 3)
+    for name, v in res._asdict().items():
+        assert v.device.type == "cuda", f"{name} left the card"
+        if v.dtype.is_floating_point:
+            assert bool(torch.isfinite(v).all()), f"non-finite {name}"
+
+
+def variants_on_card():
+    """The variants behind the production profile at B=64, N=50, on the
+    card: catches tensors made on the wrong device, which CPU tests
+    cannot see."""
+    from alore_legged_manipulator_tpu_torch.control import nmpc
+    from alore_legged_manipulator_tpu_torch.core.dynamics import ICRParams
+    from alore_legged_manipulator_tpu_torch.solvers import bfgs, minco
+    from alore_legged_manipulator_tpu_torch.solvers.lbfgs import LbfgsParams
+    dev = torch.device("cuda")
+    B, n = 64, 50
+    rng = np.random.default_rng(0)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    # the NMPC tick on the flagship entry's inputs
+    x_traj = f32(rng.standard_normal((B, n + 1, 3)) * 0.1)
+    u_traj = f32(rng.standard_normal((B, n, 2)) * 0.1)
+    x_est = f32(rng.standard_normal((B, 3)) * 0.1)
+    ts = 0.01 * np.arange(1, n + 2)
+    ref_x = f32(np.broadcast_to(np.stack([ts, 0 * ts, 0 * ts]), (B, 3, n + 1)))
+    ref_u = f32(np.ones((B, 2, n + 1)))
+    icr = ICRParams(-0.3, 0.3, 0.2)
+    outs = {}
+    for name, kw in (("fast", {}),
+                     ("dense-triangular", dict(qp_mode="dense")),
+                     ("dense-assoc", dict(qp_mode="dense",
+                                          condense_mode="assoc")),
+                     ("dense-seq", dict(qp_mode="dense",
+                                        condense_mode="seq")),
+                     ("dense-seq-rk4", dict(qp_mode="dense",
+                                            condense_mode="seq",
+                                            integrator="rk4"))):
+        _, u_cmd, x_pred, _ = nmpc.nmpc_rti_step(
+            nmpc.NmpcCarry(x_traj, u_traj), x_est, ref_x, ref_u, icr,
+            nmpc.NmpcConfig(**kw))
+        assert u_cmd.device.type == "cuda" and x_pred.device.type == "cuda"
+        assert bool(torch.isfinite(u_cmd).all())
+        outs[name] = u_cmd
+    errs = {k: float((v - outs["fast"]).abs().max()) for k, v in outs.items()}
+    # the rk4 linearization is another model of the step (1e-3), the
+    # condensers and the dense QP are the same arithmetic (1e-4, f32)
+    for k, e in errs.items():
+        assert e < (1e-3 if "rk4" in k else 1e-4), f"nmpc {k}: {e}"
+    _, u_cold, _, _ = nmpc.nmpc_cold_start_step(x_est, ref_x, ref_u,
+                                                nmpc.NmpcConfig())
+    assert u_cold.device.type == "cuda" and bool(torch.isfinite(u_cold).all())
+    print("nmpc modes vs the matrix-free path, max |u_cmd diff|: "
+          + json.dumps(errs), flush=True)
+
+    # a 32-piece spline: cyclic reduction against the dense 6N system (f64)
+    m = 32
+    head = torch.as_tensor(rng.standard_normal((B, 2, 3)), device=dev)
+    tail = torch.as_tensor(rng.standard_normal((B, 2, 3)), device=dev)
+    inner = torch.as_tensor(rng.standard_normal((B, 2, m - 1)), device=dev)
+    times = torch.as_tensor(rng.uniform(0.3, 1.5, (B, m)), device=dev)
+    c_cr = minco.minco_coeffs(head, tail, inner, times)
+    c_de = minco.minco_coeffs_dense(head, tail, inner, times)
+    rel = float((c_cr - c_de).abs().max() / c_de.abs().max())
+    assert c_cr.device.type == "cuda" and rel < 1e-7, f"minco CR: {rel}"
+    print(f"minco 32 pieces, cyclic reduction vs dense 6N: rel {rel:.2e}",
+          flush=True)
+
+    # ring / compact / dense on a batched quadratic, in f64: an Armijo
+    # test on f32 costs of O(1) cannot place x closer than ~3e-4
+    nq = 17
+    A = rng.standard_normal((B, nq, nq))
+    Q = torch.as_tensor(np.einsum("bij,bkj->bik", A, A) / nq + np.eye(nq),
+                        device=dev)
+    b = torch.as_tensor(rng.standard_normal((B, nq)), device=dev)
+    sol = torch.linalg.solve(Q, b[..., None])[..., 0]
+
+    def fun(x):
+        Qx = (Q * x[:, None, :]).sum(-1)
+        return 0.5 * (x * Qx).sum(-1) - (b * x).sum(-1), Qx - b
+
+    p = LbfgsParams(g_epsilon=1e-8, delta=0.0, past=0, hard_iter_cap=300)
+    derr = {}
+    for d in ("ring", "compact", "dense"):
+        x, _, st, k = bfgs.bfgs_minimize(fun, torch.zeros_like(b), p, d)
+        assert x.device.type == "cuda"
+        derr[d] = [float((x - sol).abs().max()), int(k.max())]
+        assert derr[d][0] < 1e-4, f"direction {d}: {derr[d]}"
+    print("solver directions on a quadratic, [max |x - x*|, iterations]: "
+          + json.dumps(derr), flush=True)
 
 
 def main() -> int:
@@ -259,12 +403,17 @@ def main() -> int:
     else:
         raise AssertionError("a 162x162 grid was not refused")
 
-    # ---- 3. the mission fleet on the card ----
-    _phase("mission fleet B=64 K=3 on the card")
+    # ---- 3. the production mission on the card ----
+    _phase("production mission B=64 K=3 on the card (compact, corrections)")
+    from alore_legged_manipulator_tpu_torch.planner.backend import (
+        BackendConfig)
     occ = np.zeros((80, 80), bool)
     occ[30:40, 44:50] = True
     icr = ICRParams(-0.3, 0.3, 0.2)
-    cfg = mf.MissionFleetConfig(approach_ticks=700, push_ticks=550)
+    cfg = mf.MissionFleetConfig(
+        approach_ticks=700, push_ticks=550,
+        backend=BackendConfig(solver_direction="compact"))
+    corr_ticks = 300
     B, K = 64, 3
     items, targets = mf.spaced_scenarios(B, K, np.random.default_rng(0))
     robot0 = np.tile(np.array([1.0, 4.0, 0.0], np.float32), (B, 1))
@@ -274,43 +423,79 @@ def main() -> int:
     wfc.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = mf.run_mission(items32, targets32, robot0, esdf, icr, cfg)
+    base = mf.run_mission(items32, targets32, robot0, esdf, icr, cfg)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    # the field alone, as a user asks for it: the first leg's targets on
-    # the mission's inflated map through the public entry point
-    blk_m = (esdf.dist < cfg.wf_safe_dis).expand(B, 80, 80).contiguous()
-    goal_m = torch.clamp(torch.as_tensor(targets32[:, 0] / 0.1,
-                                         device="cuda").to(torch.int32),
-                         0, 79)
-    field_m = wf.octile_distance_field(blk_m, goal_m)
+    wall_fleet = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res, miss_counts = mf.correct_until_delivered(base, targets32, esdf, icr,
+                                                  cfg, corr_ticks)
     torch.cuda.synchronize()
+    wall_rounds = time.perf_counter() - t0
+    sim_s = mf.mission_seconds_exact(res, cfg, corr_ticks,
+                                     miss_counts=miss_counts) / B
+    field_m, blk_m, goal_m = mission_field_through_k2(wf, esdf, targets32,
+                                                      cfg, B)
     launches = dict(wfc.LAUNCHES)
-    print("launches during the mission:", json.dumps(launches), flush=True)
-    assert launches["wavefront_packed"] >= 3, \
-        "K1 ran fewer than 3 times on the main path"
-    assert launches["octile_distance_field"] >= 1, \
-        "K2 never ran through octile_distance_field"
+    rounds = len(miss_counts)
+    print("launches during the production mission:", json.dumps(launches),
+          flush=True)
+    assert launches["wavefront_packed"] == K + rounds, \
+        f"K1 ran {launches['wavefront_packed']} times, not {K} + {rounds}"
+    assert launches["octile_distance_field"] == 1, \
+        "K2 did not run once through octile_distance_field"
     assert torch.equal(field_m, wf.octile_distance_field_torch(blk_m, goal_m)), \
         "the mission map's field differs from plain"
     assert bool((field_m < 1e9).any())
-    assert res.object_err.shape == (B, K) and res.push_traj.shape == \
-        (B, K, cfg.push_ticks, 3)
-    for name, v in res._asdict().items():
-        if v.dtype.is_floating_point:
-            assert bool(torch.isfinite(v).all()), f"non-finite {name}"
-    delivered = float(res.delivered.float().mean())
-    err = res.object_err
+    assert_finite(base, (B, K), cfg.push_ticks)
+    assert_finite(res, (B, K), cfg.push_ticks)
+    before, after = fleet_summary(base), fleet_summary(res)
     print(json.dumps({
-        "mission_wall_s": wall, "missions": B, "objects": K,
-        "delivered_frac": delivered,
-        "delivered_per_leg": res.delivered.sum(0).tolist(),
-        "object_err_mean": float(err.mean()),
-        "object_err_max": float(err.max()),
-        "plan_err_max": float(res.plan_err.max()),
-        "collision_frac": float(res.collision.float().mean()),
-        "track_err_max": float(res.track_err_max.max())}), flush=True)
-    assert delivered >= 0.75, f"delivered_frac {delivered} below 0.75"
+        "missions": B, "objects": K, "solver_direction": "compact",
+        "correction_ticks": corr_ticks,
+        "fleet_wall_s": wall_fleet, "rounds_wall_s": wall_rounds,
+        "rounds": rounds, "miss_counts": miss_counts,
+        "simulated_s_per_mission": sim_s,
+        "missions_per_s": B / (wall_fleet + wall_rounds),
+        "before_rounds": before, "after_rounds": after}), flush=True)
+    # lanes delivered before the rounds are untouched by them
+    keep = base.delivered
+    for name in ("object_err", "track_err_max", "collision", "delivered"):
+        assert torch.equal(getattr(res, name)[keep], getattr(base, name)[keep]), \
+            f"{name} of a delivered lane changed in the rounds"
+    assert torch.equal(res.push_traj[keep], base.push_traj[keep]), \
+        "push_traj of a delivered lane changed in the rounds"
+    assert torch.equal(res.plan_err, base.plan_err)
+    assert torch.equal(res.robot_final, base.robot_final)
+    assert int(sum(miss_counts[:1])) == int((~keep).sum())
+    assert after["delivered_frac"] >= before["delivered_frac"]
+    assert after["delivered_frac"] >= 0.85, \
+        f"delivered_frac {after['delivered_frac']} after the rounds below 0.85"
+
+    # ---- 4. the first slice's ring fleet (depth cut to K=1), leg phases ----
+    _phase("ring fleet B=64 K=1 on the card (no corrections)")
+    cfg_ring = mf.MissionFleetConfig(approach_ticks=700, push_ticks=550)
+    assert cfg_ring.backend.solver_direction == "ring"
+    wfc.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_ring = mf.run_mission(items32[:, :1], targets32[:, :1], robot0, esdf,
+                              icr, cfg_ring)
+    torch.cuda.synchronize()
+    wall_ring = time.perf_counter() - t0
+    field_r, blk_r, goal_r = mission_field_through_k2(wf, esdf, targets32,
+                                                      cfg_ring, B)
+    launches_ring = dict(wfc.LAUNCHES)
+    print("launches during the ring fleet:", json.dumps(launches_ring),
+          flush=True)
+    assert launches_ring["wavefront_packed"] == 1
+    assert launches_ring["octile_distance_field"] == 1
+    assert torch.equal(field_r, field_m)
+    assert_finite(res_ring, (B, 1), cfg_ring.push_ticks)
+    ring = fleet_summary(res_ring)
+    print(json.dumps({"missions": B, "objects": 1, "solver_direction": "ring",
+                      "fleet_wall_s": wall_ring, **ring}), flush=True)
+    assert ring["delivered_frac"] >= 0.75, \
+        f"ring delivered_frac {ring['delivered_frac']} below 0.75"
     leg_phases(mf, items32, targets32, robot0, esdf, icr, cfg)
 
     # a small fleet (the first legs of 8 of these missions, unpainted map)
@@ -341,7 +526,11 @@ def main() -> int:
     assert int(dc.sum()) >= int(dp.sum()) - 1, \
         "the card delivers fewer legs than the CPU reference"
 
-    # ---- 4. result lines ----
+    # ---- 5. variants on the card ----
+    _phase("variants on the card")
+    variants_on_card()
+
+    # ---- 6. result lines ----
     kern = []
     for name, replaces in (
             ("wavefront_packed",
@@ -353,6 +542,7 @@ def main() -> int:
             name=name, route="cuda",
             source="alore_legged_manipulator_tpu_torch/csrc/wavefront.cu",
             replaces=replaces, launches=launches[name],
+            launches_ring_fleet=launches_ring[name],
             max_abs_err=max(m["max_abs_err"], m100[name]["max_abs_err"],
                             m64[name]["max_abs_err"]),
             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],

@@ -190,6 +190,22 @@ def plans():
 
 def test_plan_backend_quality(plans):
     ref, got = plans
+    _quality(got, ref)
+
+
+def test_plan_backend_lanes_independent(plans):
+    """A lane planned alone gives the lane's result in the batch."""
+    _, got = plans
+    flat_np = _flats(GOALS, if_cut=IF_CUT)
+    e_t = esdf_from_occupancy(torch.as_tensor(_occ()), torch.zeros(2), 0.1)
+    one = jax.tree.map(lambda a: a[1:2], flat_np)
+    alone = tb.plan_backend(from_jax_numpy(one), e_t, tb.BackendConfig())
+    np.testing.assert_allclose(alone.coeffs.numpy(), got.coeffs[1:2].numpy(),
+                               rtol=0, atol=1e-9)
+    assert int(alone.replans[0]) == int(got.replans[1])
+
+
+def _quality(got, ref):
     assert got.coeffs.shape == ref.coeffs.shape
     assert not bool(got.collision.any())
     assert not bool(np.any(ref.collision))
@@ -203,13 +219,55 @@ def test_plan_backend_quality(plans):
     np.testing.assert_array_less(np.abs(dur - dur_ref) / dur_ref, 0.05)
 
 
-def test_plan_backend_lanes_independent(plans):
-    """A lane planned alone gives the lane's result in the batch."""
-    _, got = plans
+@pytest.mark.parametrize("variant", [dict(solver_direction="compact"),
+                                     dict(flat_bfgs=False)],
+                         ids=["compact", "nested"])
+def test_plan_backend_variant_quality(variant):
+    """The compact direction and the nested `lbfgs_minimize` path, held to
+    the JAX plan under the same option as `test_plan_backend_quality`
+    holds the default: collision-free, goal within 1e-2 m (cut lane: the
+    cut schedule's tolerance), total duration within 5%."""
     flat_np = _flats(GOALS, if_cut=IF_CUT)
+    e_j = j_esdf_from_occupancy(jnp.asarray(_occ()), jnp.zeros(2), 0.1)
     e_t = esdf_from_occupancy(torch.as_tensor(_occ()), torch.zeros(2), 0.1)
-    one = jax.tree.map(lambda a: a[1:2], flat_np)
-    alone = tb.plan_backend(from_jax_numpy(one), e_t, tb.BackendConfig())
-    np.testing.assert_allclose(alone.coeffs.numpy(), got.coeffs[1:2].numpy(),
-                               rtol=0, atol=1e-9)
-    assert int(alone.replans[0]) == int(got.replans[1])
+    cfg_j = jb.BackendConfig(**variant)
+    ref = jax.jit(jax.vmap(lambda f: jb.plan_backend(f, e_j, cfg_j)))(
+        jax.tree.map(jnp.asarray, flat_np))
+    got = tb.plan_backend(from_jax_numpy(flat_np), e_t,
+                          tb.BackendConfig(**variant))
+    _quality(got, jax.tree.map(np.asarray, ref))
+
+
+@pytest.mark.parametrize("variant", [dict(solver_direction="ring"),
+                                     dict(solver_direction="compact"),
+                                     dict(solver_direction="dense"),
+                                     dict(flat_bfgs=False)],
+                         ids=["ring", "compact", "dense", "nested"])
+def test_alm_stage_first_trips_match_jax(variant):
+    """Stage 2 from the same start, stopped after 4 accepted iterations
+    of one inner solve: the decision vectors agree to 1e-7 (relative to
+    max(1, |x|)) and the iteration counts are equal.  Later trips may
+    part after last-bit differences in a line-search test."""
+    flat_np = _flats(GOALS, if_cut=IF_CUT)
+    e_j = j_esdf_from_occupancy(jnp.asarray(_occ()), jnp.zeros(2), 0.1)
+    e_t = esdf_from_occupancy(torch.as_tensor(_occ()), torch.zeros(2), 0.1)
+    B = len(GOALS)
+    x0 = _x_samples(flat_np)[0]
+    safe = np.full(B, 0.4)
+    tw = np.full(B, jb.BackendConfig().weights.time_weight)
+
+    def cfg_of(mod):
+        c = mod.BackendConfig(**variant)
+        return c._replace(lbfgs=c.lbfgs._replace(max_iterations=4),
+                          alm=c.alm._replace(max_outer=1))
+
+    cfg_j, cfg_t = cfg_of(jb), cfg_of(tb)
+    x_ref, k_ref = jax.jit(jax.vmap(
+        lambda x, f, s, t: jb._alm_stage(x, f, e_j, s, cfg_j, cfg_j.alm, t)))(
+            jnp.asarray(x0), jax.tree.map(jnp.asarray, flat_np),
+            jnp.asarray(safe), jnp.asarray(tw))
+    x, k = tb._alm_stage(torch.as_tensor(x0), from_jax_numpy(flat_np), e_t,
+                         torch.as_tensor(safe), cfg_t, cfg_t.alm,
+                         torch.as_tensor(tw))
+    np.testing.assert_array_equal(k.numpy(), np.asarray(k_ref))
+    _assert_rel(x.numpy(), np.asarray(x_ref), tol=1e-7)

@@ -34,8 +34,9 @@ def _port_modules():
 def test_module_list_covers_the_slice():
     mods = _port_modules()
     for m in ("ops.wavefront", "ops.wavefront_cuda", "planner.backend",
-              "solvers.bfgs", "control.nmpc", "runtime.mission_fleet",
-              "convert", "utils.precision"):
+              "solvers.bfgs", "solvers.lbfgs", "solvers.minco",
+              "control.nmpc", "estimator.icr_ekf", "ops.qp",
+              "runtime.mission_fleet", "convert", "utils.precision"):
         assert f"{port_pkg.__name__}.{m}" in mods
 
 
@@ -102,3 +103,13 @@ def test_config_defaults_match(name):
     jax_cls = getattr(importlib.import_module(_JAX_MODULES[name]), name)
     port_cls = port_class(name)
     _same_defaults(jax_cls(), port_cls(), name)
+
+
+@pytest.mark.parametrize("name", sorted(_CLASSES))
+def test_class_fields_match(name):
+    """Every class the port shares with the JAX package keeps its field
+    names and their order, so `from_jax_numpy` can carry it over."""
+    import importlib
+    jax_cls = getattr(importlib.import_module(
+        "alore_legged_manipulator_tpu." + _CLASSES[name]), name)
+    assert tuple(jax_cls._fields) == tuple(port_class(name)._fields)

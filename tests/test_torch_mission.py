@@ -12,7 +12,9 @@ the CPU: the JAX program vmapped over the fleet, the port batched.
   last-bit differences, so the pushes are compared on outcome, not
   iterate by iterate.
 
-The unported options raise instead of being ignored.
+The one unported option (the physics plant) raises instead of being
+ignored; the correction legs and the straight front end have their own
+file, tests/test_torch_corrections.py.
 """
 import jax
 import jax.numpy as jnp
@@ -135,22 +137,14 @@ def test_painted_esdf_matches():
                                atol=1e-6)
 
 
-@pytest.mark.parametrize("change", [
-    dict(frontend_mode="straight"), dict(plant="physics"),
-    dict(correction_ticks=100)])
+@pytest.mark.parametrize("change", [dict(plant="physics")],
+                         ids=["change1"])    # the id this case always had
 def test_unported_options_raise(change):
     _, e_t = _esdfs()
     cfg = tmf.MissionFleetConfig(**change)
     with pytest.raises(NotImplementedError):
         tmf.run_mission(ITEMS, TARGETS, ROBOT0, e_t, TICR(*ICR), cfg,
                         device="cpu")
-
-
-def test_corrections_raise():
-    with pytest.raises(NotImplementedError):
-        tmf.correct_missed_legs(None, None, None, None, None, 100)
-    with pytest.raises(NotImplementedError):
-        tmf.correct_until_delivered(None, None, None, None, None, 100)
 
 
 def test_default_device_is_the_card(monkeypatch):
