@@ -392,18 +392,13 @@ def _unsqueeze_ops(ops: _TriOps) -> _TriOps:
 
 def _feedback_matfree(carry: NmpcCarry, prep, x_est, ref_x, ref_u,
                       cfg: NmpcConfig):
-    """Condense + box QP + expand without materializing C or H."""
+    """Condense + box QP + expand without materializing C or H; prep is
+    the factor form of `_linearize`."""
     n = cfg.horizon
     dtype, dev = carry.x_traj.dtype, carry.x_traj.device
     B = carry.x_traj.shape[0]
     dx0 = x_est - carry.x_traj[:, 0]
-    if len(prep) == 6:       # closed-form factors from prepare_tri
-        x_int, a02, a12, B0, B1, B2 = prep
-        ops = _tri_ops_factors(carry.x_traj, x_int, a02, a12, B0, B1, B2,
-                               dx0)
-    else:
-        x_int, A, Bm = prep
-        ops = _tri_ops(carry.x_traj, x_int, A, Bm, dx0, n)
+    ops = _tri_ops_factors(carry.x_traj, *prep, dx0)
     ops4 = _unsqueeze_ops(ops)      # for the line search's (B, 4, n) batch
 
     qs, rs, qn = stage_weights(cfg, dtype, dev)
@@ -437,7 +432,7 @@ def feedback(carry: NmpcCarry, prep, x_est, ref_x, ref_u, icr: ICRParams,
              cfg: NmpcConfig):
     """Condense + box QP + expand (acado_feedbackStep analogue).
 
-    ref_x (B, 3, N+1) reference states; ref_u (B, 2, N+1) reference
+    prep is what `_linearize` returns under cfg.  ref_x (B, 3, N+1) reference states; ref_u (B, 2, N+1) reference
     inputs (last column unused for the stage cost, the ACADO yN layout).
     Returns (new_carry, predicted states (B, N+1, 3), predicted inputs
     (B, N, 2)).
@@ -483,9 +478,19 @@ def feedback(carry: NmpcCarry, prep, x_est, ref_x, ref_u, icr: ICRParams,
     return NmpcCarry(x_traj=x_new, u_traj=u_new), x_new, u_new
 
 
-def _is_fast(cfg: NmpcConfig) -> bool:
-    return (cfg.qp_mode == "matfree" and cfg.condense_mode == "triangular"
-            and cfg.integrator == "exact")
+def _linearize(carry: NmpcCarry, icr: ICRParams, cfg: NmpcConfig):
+    """The linearization in the form `feedback` takes under cfg: for the
+    matrix-free triangular path the factors (x_int, a02, a12, B0, B1, B2)
+    of prepare_tri (closed form for the exact integrator, else read off
+    prepare's Jacobians), otherwise prepare's (x_int, A, Bm)."""
+    matfree = cfg.qp_mode == "matfree" and cfg.condense_mode == "triangular"
+    if matfree and cfg.integrator == "exact":
+        return prepare_tri(carry, icr, cfg)
+    x_int, A, Bm = prepare(carry, icr, cfg)
+    if matfree:
+        return (x_int, A[..., 0, 2], A[..., 1, 2],
+                Bm[..., 0, :], Bm[..., 1, :], Bm[..., 2, :])
+    return x_int, A, Bm
 
 
 def nmpc_rti_step(carry: NmpcCarry, x_est, ref_x, ref_u, icr: ICRParams,
@@ -496,7 +501,7 @@ def nmpc_rti_step(carry: NmpcCarry, x_est, ref_x, ref_u, icr: ICRParams,
     with the previous tick's estimate); None = same-tick semantics.
     Returns (new_carry, u_cmd (B, 2), x_pred, u_pred)."""
     lin_icr = icr if prep_icr is None else prep_icr
-    prep = (prepare_tri if _is_fast(cfg) else prepare)(carry, lin_icr, cfg)
+    prep = _linearize(carry, lin_icr, cfg)
     new_carry, x_pred, u_pred = feedback(carry, prep, x_est, ref_x, ref_u,
                                          icr, cfg)
     return new_carry, u_pred[:, cfg.delay_num], x_pred, u_pred
@@ -522,7 +527,7 @@ def nmpc_cold_start_step(x_est, ref_x, ref_u, cfg: NmpcConfig,
                            device=dev),
         u_traj=torch.zeros((nb, cfg.horizon, NU), dtype=dtype, device=dev))
     icr0 = ICRParams(yr=-0.2, yl=0.2, xv=0.0)
-    prep = (prepare_tri if _is_fast(cfg) else prepare)(zero_carry, icr0, cfg)
+    prep = _linearize(zero_carry, icr0, cfg)
     # x_est = 0 makes Dx0 = 0 exactly as solve()'s replicate leaves it
     carry2, _, u_pred = feedback(
         zero_carry, prep, torch.zeros((nb, NX), dtype=dtype, device=dev),

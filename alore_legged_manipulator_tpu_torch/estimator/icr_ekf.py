@@ -16,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils.angles import unwrap_to
+from ..utils.precision import resolve_device
 
 
 class EkfConfig(NamedTuple):
@@ -116,6 +117,9 @@ class FirstOrderFilter(NamedTuple):
 
     @staticmethod
     def create(cutoff_hz, sampling_hz, dtype=torch.float32, device=None):
+        """The state lies on the card unless `device` says otherwise
+        (device=None means CUDA and raises when it is missing)."""
+        device = resolve_device(device)
         a = torch.exp(torch.tensor(-2.0 * math.pi * cutoff_hz / sampling_hz,
                                    dtype=dtype, device=device))
         return FirstOrderFilter(a=a, y=torch.zeros((), dtype=dtype,
@@ -146,6 +150,9 @@ class SimpleIcrState(NamedTuple):
     @staticmethod
     def create(cutoff_hz=0.5, sampling_hz=100.0, dtype=torch.float32,
                device=None):
+        """device=None means CUDA, as in `FirstOrderFilter.create`."""
+        device = resolve_device(device)
+
         def mk():
             return FirstOrderFilter.create(cutoff_hz, sampling_hz, dtype,
                                            device)
@@ -183,6 +190,10 @@ class ConvergenceMonitor(NamedTuple):
 
     @staticmethod
     def create(batch_shape=(), device=None):
+        """The counters lie on the card unless `device` says otherwise
+        (device=None means CUDA and raises when it is missing); `step`
+        takes estimates on the same device."""
+        device = resolve_device(device)
         shape = (*batch_shape, 3)
         return ConvergenceMonitor(
             count=torch.zeros(shape, dtype=torch.int32, device=device),

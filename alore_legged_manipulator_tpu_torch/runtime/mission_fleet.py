@@ -373,6 +373,16 @@ def spaced_scenarios(B, K, rng, item_x=(1.0, 2.5), target_x=(5.5, 7.0),
     return sample_side(*item_x), sample_side(*target_x)
 
 
+def _other_finals(finals, b_idx, k_idx):
+    """XY of the K-1 other objects of each gathered lane, in object
+    order with object k_idx[m] left out: finals (B, K, 3), b_idx / k_idx
+    (M,) -> (M, K-1, 2)."""
+    K = finals.shape[1]
+    j = torch.arange(K - 1, device=finals.device)[None, :]
+    oth_idx = j + (j >= k_idx[:, None]).to(j.dtype)              # (M, K-1)
+    return finals[b_idx[:, None], oth_idx, :2]
+
+
 def correct_missed_legs(result: MissionFleetResult, targets, esdf: ESDF,
                         true_icr: ICRParams, cfg: MissionFleetConfig,
                         correction_ticks: int, seed: int = 0):
@@ -426,9 +436,7 @@ def correct_missed_legs(result: MissionFleetResult, targets, esdf: ESDF,
     if K > 1:
         # other objects at their FINAL poses, the corrected one excluded
         # (painted whatever cfg.paint_objects says, as the JAX package)
-        j = torch.arange(K - 1, device=dev)[None, :]
-        oth_idx = j + (j >= k_idx[:, None]).to(j.dtype)          # (M, K-1)
-        others = finals[b_idx[:, None], oth_idx, :2]             # (M, K-1, 2)
+        others = _other_finals(finals, b_idx, k_idx)
         leg_esdf = _painted_esdf(esdf, others, cfg.paint_half_extents)
     else:
         leg_esdf = esdf

@@ -92,10 +92,12 @@ def _flat_minimize(fun, x0, params: LbfgsParams, direction, ostate0,
     already = (torch.amax(g0.abs(), -1)
                / torch.clamp(torch.amax(x0.abs(), -1), min=1.0)) < p.g_epsilon
 
-    eye = torch.eye(n, dtype=dtype, device=dev).expand(B, n, n)
     idxs = torch.arange(m, device=dev)
-    not_last = (idxs < m - 1).to(dtype)
-    not_last2 = not_last[:, None] * not_last[None, :]
+    if dense:
+        eye = torch.eye(n, dtype=dtype, device=dev).expand(B, n, n)
+    if compact:
+        not_last = (idxs < m - 1).to(dtype)
+        not_last2 = not_last[:, None] * not_last[None, :]
 
     def fresh_pf(f):
         pf = torch.full((B, past), float("inf"), dtype=dtype, device=dev)

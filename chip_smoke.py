@@ -326,6 +326,41 @@ def variants_on_card():
     print("solver directions on a quadratic, [max |x - x*|, iterations]: "
           + json.dumps(derr), flush=True)
 
+    # the publisher-tick estimator extras, created with no device named
+    # (that means the card) and stepped on card tensors
+    from alore_legged_manipulator_tpu_torch.estimator import icr_ekf
+    yr, yl, xv = (float(v) for v in icr)
+    vl = f32(rng.uniform(0.2, 0.6, B))
+    vr = f32(rng.uniform(1.0, 1.5, B))
+    w = (vr - vl) / (yl - yr)
+    vx = (vr * yl - vl * yr) / (yl - yr)
+    flt = icr_ekf.FirstOrderFilter.create(0.5, 100.0)
+    est_state = icr_ekf.SimpleIcrState.create(2.0, 100.0)
+    mon = icr_ekf.ConvergenceMonitor.create((B,))
+    for _ in range(800):
+        flt, y = flt.step(vx)
+        est_state, est = est_state.step(vx, -xv * w, w, vx - yl * w,
+                                        vx - yr * w)
+        mon = mon.step(est[:, [1, 0, 2]], (yr, yl, xv))
+    truth = torch.tensor([yl, yr, xv], device=dev)
+    aux = {"filter": float((y - vx).abs().max()),
+           "simple_icr": float((est - truth).abs().max()),
+           "latched_lanes": int(mon.converged.all(-1).sum()),
+           "tick": int(mon.tick)}
+    for t in (y, est, mon.count, mon.converged, mon.latch_tick, mon.tick):
+        assert t.device.type == "cuda"
+    # a steady turn without noise: the low-pass settles on its input and
+    # the algebraic estimate on the true ICR (1e-3, f32), every lane
+    # latches
+    assert aux["filter"] < 1e-3 and aux["simple_icr"] < 1e-3, aux
+    assert aux["latched_lanes"] == B and aux["tick"] == 800, aux
+    st = icr_ekf.ekf_init(torch.zeros(B, 3, device=dev), (yr, yl, xv))
+    pose_var, icr_var = icr_ekf.covariance_report(st)
+    assert pose_var.device.type == "cuda" and pose_var.shape == (B, 3)
+    assert icr_var.shape == (B, 3)
+    print("estimator extras after 800 ticks of a steady turn: "
+          + json.dumps(aux), flush=True)
+
 
 def main() -> int:
     if not torch.cuda.is_available():

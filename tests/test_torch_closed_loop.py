@@ -16,6 +16,7 @@ both sides accept: `jax.random` streams cannot be reproduced by a
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from alore_legged_manipulator_tpu.control import tracked_traj as jtt
@@ -241,7 +242,8 @@ def test_plant_mpc_tick_and_wheel_feedback():
 def test_first_order_filter_recurrence():
     """y[k] = (1-a) u[k] + a y[k-1] with a = exp(-2 pi fc / fs), against
     the JAX filter on the same samples (1e-12)."""
-    f_t = tekf.FirstOrderFilter.create(0.5, 100.0, torch.float64)
+    f_t = tekf.FirstOrderFilter.create(0.5, 100.0, torch.float64,
+                                       device="cpu")
     f_j = jekf.FirstOrderFilter.create(0.5, 100.0, jnp.float64)
     np.testing.assert_allclose(float(f_t.a), float(f_j.a), rtol=0, atol=1e-15)
     us = np.random.default_rng(0).normal(size=(50, B))
@@ -259,7 +261,8 @@ def test_simple_icr_estimate_converges_and_gates():
     """Lanes with informative and with gated (|omega| <= 0.1) yaw rates:
     a steady turn recovers the true ICR within 0.02, as
     tests/test_ekf_aux.py asks, and a gated lane stays exactly 0."""
-    st_t = tekf.SimpleIcrState.create(2.0, 100.0, torch.float64)
+    st_t = tekf.SimpleIcrState.create(2.0, 100.0, torch.float64,
+                                      device="cpu")
     yr, yl, xv = ICR
     rng = np.random.default_rng(1)
     vl = np.array([0.5, 1.0, 0.2])
@@ -279,7 +282,8 @@ def test_simple_icr_estimate_converges_and_gates():
 def test_simple_icr_estimate_tick_for_tick():
     yr, yl, xv = ICR
     rng = np.random.default_rng(3)
-    st_t = tekf.SimpleIcrState.create(0.5, 100.0, torch.float64)
+    st_t = tekf.SimpleIcrState.create(0.5, 100.0, torch.float64,
+                                      device="cpu")
     sts_j = [jekf.SimpleIcrState.create(0.5, 100.0, jnp.float64)
              for _ in range(B)]
     for _ in range(40):
@@ -300,7 +304,7 @@ def test_convergence_monitor_latch_and_reset():
     un-latches; every field equals the JAX monitor's at every tick."""
     std = np.array(ICR)
     good, bad = std * 1.005, std * 1.05
-    mon_t = tekf.ConvergenceMonitor.create((2,))
+    mon_t = tekf.ConvergenceMonitor.create((2,), device="cpu")
     mons_j = [jekf.ConvergenceMonitor.create() for _ in range(2)]
     # lane 0: 12 good ticks then a bad one; lane 1: 8 good, bad, 4 good
     seq0 = [good] * 12 + [bad]
@@ -322,6 +326,22 @@ def test_convergence_monitor_latch_and_reset():
     assert (mon_t.count[1] == 4).all() and (mon_t.count[0] == 0).all()
 
 
+def test_estimator_factories_default_to_the_card(monkeypatch):
+    """The factories take no tensor, so `device=None` means CUDA and
+    raises without a card, as `run_mission` does; with a device named the
+    whole state lies there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda **kw: tekf.FirstOrderFilter.create(0.5, 100.0, **kw),
+                 lambda **kw: tekf.SimpleIcrState.create(**kw),
+                 lambda **kw: tekf.ConvergenceMonitor.create((2,), **kw)):
+        with pytest.raises(RuntimeError):
+            make()
+        state = make(device="cpu")
+        leaves = [t for f in state
+                  for t in (f if isinstance(f, tuple) else (f,))]
+        assert all(t.device.type == "cpu" for t in leaves)
+
+
 def test_covariance_report_and_monitor_on_ekf_run():
     """EKF + monitor on simulated wheel data, two lanes with different
     starting guesses, beside the JAX filter on lane 0 (1e-9 after 1500
@@ -334,7 +354,10 @@ def test_covariance_report_and_monitor_on_ekf_run():
                          torch.as_tensor(guess), dtype=torch.float64)
     st_j = jekf.ekf_init(jnp.zeros(3), jnp.asarray(guess[0]),
                          dtype=jnp.float64)
-    mon = tekf.ConvergenceMonitor.create((2,))
+    mon = tekf.ConvergenceMonitor.create((2,), device="cpu")
+    # the JAX side compiled once: eager it re-traces its jacfwd 1500 times
+    j_predict = jax.jit(lambda st, u: jekf.ekf_predict(st, u, dt))
+    j_update = jax.jit(jekf.ekf_update)
     x_true = np.zeros(3)
     yr, yl, xv = ICR
     for k in range(1500):
@@ -348,11 +371,11 @@ def test_covariance_report_and_monitor_on_ekf_run():
                                          v * s - w * xv * c, w])
         u = np.array([vl, vr])
         st_t = tekf.ekf_predict(st_t, torch.as_tensor(np.stack([u, u])), dt)
-        st_j = jekf.ekf_predict(st_j, jnp.asarray(u), dt)
+        st_j = j_predict(st_j, jnp.asarray(u))
         if k % 5 == 0:
             obs = x_true + 0.001 * rng.normal(size=3)
             st_t = tekf.ekf_update(st_t, torch.as_tensor(np.stack([obs, obs])))
-            st_j = jekf.ekf_update(st_j, jnp.asarray(obs))
+            st_j = j_update(st_j, jnp.asarray(obs))
         if k % 10 == 0:
             mon = mon.step(st_t.x[:, 3:6], torch.as_tensor(std))
     np.testing.assert_allclose(st_t.x[0].numpy(), np.asarray(st_j.x), rtol=0,

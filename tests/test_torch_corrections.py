@@ -167,6 +167,118 @@ def test_correct_until_delivered_rounds(corrected):
     assert float(out3.object_err[0, 0]) < e0
 
 
+def test_other_finals_match_np_delete():
+    """The gather of the other objects' final poses equals the JAX
+    package's `np.delete` row for row (exact), for every (lane, object)
+    pair at K = 2, 3, 4 and for a repeated fleet lane."""
+    rng = np.random.default_rng(7)
+    for K in (2, 3, 4):
+        finals = rng.normal(size=(3, K, 3))
+        pairs = [(b, k) for b in range(3) for k in range(K)] + [(1, K - 1)]
+        b_idx, k_idx = (torch.as_tensor(a) for a in zip(*pairs))
+        got = tmf._other_finals(torch.as_tensor(finals), b_idx, k_idx)
+        want = np.stack([np.delete(finals[b, :, :2], k, axis=0)
+                         for b, k in pairs])
+        assert got.shape == (len(pairs), K - 1, 2)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+# K = 3: two missed legs with different object indices.  Lane (0, 1) must
+# detour round object 0, whose painted box (3.0-3.8 x 3.9-4.7) lies across
+# its straight line y = 4; lane (1, 2) has a free line.
+K3_FINALS = np.array([[[3.4, 4.3, 0.3], [2.0, 4.0, 0.0], [6.0, 6.0, 1.0]],
+                      [[5.0, 5.0, 0.0], [6.0, 2.0, -0.5], [2.0, 2.0, 0.1]]])
+K3_TARGETS = np.array([[[3.4, 4.3], [5.2, 4.0], [6.0, 6.0]],
+                       [[5.0, 5.0], [6.0, 2.0], [3.5, 2.0]]])
+K3_DELIVERED = np.array([[True, False, True], [True, True, False]])
+
+
+def _k3_result():
+    """A fleet result as `run_mission` would leave it at B=2, K=3 (numpy
+    leaves), with the push traces cut to 4 samples."""
+    rng = np.random.default_rng(11)
+    traj = rng.normal(size=(2, 3, 4, 3))
+    traj[:, :, -1] = K3_FINALS
+    err = np.linalg.norm(K3_FINALS[..., :2] - K3_TARGETS, axis=-1)
+    return jmf.MissionFleetResult(
+        object_err=err, delivered=K3_DELIVERED,
+        plan_err=rng.uniform(0, 0.01, (2, 3)),
+        collision=np.zeros((2, 3), bool),
+        track_err_max=rng.uniform(0, 0.05, (2, 3)),
+        robot_final=rng.normal(size=(2, 3)), push_traj=traj)
+
+
+def test_k3_correction_paints_the_others_as_jax(monkeypatch):
+    """K = 3, the branch every round of the production mission takes: the
+    field each corrected lane plans in is the JAX package's painting of
+    `np.delete(finals, k)` (the same occupied cells; distances to 1e-6,
+    the field is f32 on both sides and one ulp at 4 m is 4.8e-7; a
+    misplaced box moves it by a cell, 0.1), the same two lanes are corrected
+    on both sides with the same outcome (both deliver; final poses within
+    5 cm, the two back ends may take different valid optima after last-bit
+    differences), and the four delivered legs keep every field bit for
+    bit."""
+    occ = np.zeros((80, 80), bool)
+    occ[20:24, 60:70] = True                  # a base obstacle out of the way
+    e_j = j_esdf_from_occupancy(jnp.asarray(occ), jnp.zeros(2), 0.1)
+    e_t = esdf_from_occupancy(torch.as_tensor(occ), torch.zeros(2), 0.1)
+    cfg_j, cfg_t = _cfgs()
+    res = _k3_result()
+    res_t = from_jax_numpy(res)
+
+    seen = {}
+    real_push_leg = tmf._push_leg
+
+    def spy(start_xy, start_yaw, target, esdf, *a, **kw):
+        seen["esdf"], seen["start"], seen["target"] = esdf, start_xy, target
+        return real_push_leg(start_xy, start_yaw, target, esdf, *a, **kw)
+
+    monkeypatch.setattr(tmf, "_push_leg", spy)
+    fixed_t, n_t = tmf.correct_missed_legs(res_t, K3_TARGETS, e_t,
+                                           TICR(*ICR), cfg_t, 400)
+    lanes = [(0, 1), (1, 2)]
+    assert n_t == 2 and seen["esdf"].dist.shape == (2, 80, 80)
+    for m, (b, k) in enumerate(lanes):
+        want = jmf._painted_esdf(
+            e_j, jnp.asarray(np.delete(K3_FINALS[b, :, :2], k, axis=0)),
+            cfg_j.paint_half_extents)
+        np.testing.assert_allclose(seen["esdf"].dist[m].numpy(),
+                                   np.asarray(want.dist), rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(seen["esdf"].dist[m].numpy() <= 0.0,
+                                      np.asarray(want.dist) <= 0.0)
+        np.testing.assert_array_equal(seen["start"][m].numpy(),
+                                      K3_FINALS[b, k, :2])
+        np.testing.assert_array_equal(seen["target"][m].numpy(),
+                                      K3_TARGETS[b, k])
+    # the corrected object itself is not in its own field, the parked
+    # neighbour is
+    d0 = seen["esdf"].dist[0]
+    assert float(d0[20, 40]) > 0.5 and float(d0[34, 43]) <= 0.0
+
+    res_j = jmf.MissionFleetResult(*(jnp.asarray(a) for a in res))
+    fixed_j, n_j = jmf.correct_missed_legs(res_j, jnp.asarray(K3_TARGETS),
+                                           e_j, JICR(*ICR), cfg_j, 400)
+    assert n_j == 2
+    np.testing.assert_array_equal(fixed_t.delivered.numpy(),
+                                  np.asarray(fixed_j.delivered))
+    assert bool(fixed_t.delivered.all())
+    np.testing.assert_array_equal(fixed_t.collision.numpy(),
+                                  np.asarray(fixed_j.collision))
+    for b, k in lanes:
+        np.testing.assert_allclose(
+            fixed_t.push_traj[b, k, -1, :2].numpy(),
+            np.asarray(fixed_j.push_traj)[b, k, -1, :2], atol=0.05)
+    keep = torch.as_tensor(K3_DELIVERED)
+    for name in ("object_err", "track_err_max", "collision", "plan_err"):
+        np.testing.assert_array_equal(getattr(fixed_t, name)[keep].numpy(),
+                                      getattr(res, name)[K3_DELIVERED],
+                                      err_msg=name)
+    np.testing.assert_array_equal(fixed_t.push_traj[keep].numpy(),
+                                  res.push_traj[K3_DELIVERED])
+    np.testing.assert_array_equal(fixed_t.push_traj[:, :, :-1].numpy(),
+                                  res.push_traj[:, :, :-1])
+
+
 def test_mission_seconds_match_jax(corrected):
     res, fixed_j, _, res_t, fixed_t, _ = corrected
     cfg_j, cfg_t = _cfgs()
