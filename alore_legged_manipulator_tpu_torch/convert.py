@@ -5,14 +5,17 @@ whose arrays have been turned into numpy arrays (for example with
 `jax.tree.map(np.asarray, obj)`), and returns the port's object of the
 same name, field by field: arrays become tensors (shape and dtype kept),
 nested tuples and configs are converted recursively, plain numbers stay
-as they are.  The port's class is found by the JAX class's name, so this
-module imports nothing of the JAX package.
+as they are.  The dataclass configs (`PlanManagerConfig`, `FsmConfig`)
+are carried the same way, their dtype fields (`jnp.float32`, ...) mapped
+to the torch dtype of the same name.  The port's class is found by the
+JAX class's name, so this module imports nothing of the JAX package.
 
 The leading lane axis is the caller's business: convert a vmapped pytree
 as it is, or add the axis before converting.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 import numpy as np
@@ -47,13 +50,33 @@ _CLASSES = {
     "FleetFsmConfig": "runtime.mission_fleet",
     "MissionFleetConfig": "runtime.mission_fleet",
     "MissionFleetResult": "runtime.mission_fleet",
+    "BodyState": "world.physics2d",
+    "PhysicsConfig": "world.physics2d",
+    "Manifold": "world.physics2d",
+    "ContactDebug": "world.physics2d",
+    "PhysicsLoopConfig": "runtime.closed_loop_physics",
+    "PhysicsTrackingResult": "runtime.closed_loop_physics",
+    "FrontendConfig": "planner.frontend",
+}
+
+# dataclass configs: class name -> module of the port that defines it
+DATACLASSES = {
+    "PlanManagerConfig": "mission.plan_manager",
+    "FsmConfig": "mission.object_fsm",
 }
 
 
 def port_class(name: str):
     """The port's class for a JAX class name."""
-    mod = importlib.import_module(f"{__package__}.{_CLASSES[name]}")
+    mod = importlib.import_module(
+        f"{__package__}.{_CLASSES.get(name) or DATACLASSES[name]}")
     return getattr(mod, name)
+
+
+def torch_dtype(dt):
+    """The torch dtype named like a numpy or JAX dtype (jnp.float32,
+    np.float64, np.dtype('float32'), ...)."""
+    return getattr(torch, np.dtype(dt).name)
 
 
 def from_jax_numpy(obj, device=None):
@@ -69,6 +92,18 @@ def from_jax_numpy(obj, device=None):
             raise TypeError(f"{name}: fields differ between the JAX package "
                             f"{obj._fields} and the port {cls._fields}")
         return cls(*(from_jax_numpy(v, device) for v in obj))
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        name = type(obj).__name__
+        if name not in DATACLASSES:
+            raise TypeError(f"no port counterpart for {name}")
+        cls = port_class(name)
+        names = [f.name for f in dataclasses.fields(obj)]
+        if names != [f.name for f in dataclasses.fields(cls)]:
+            raise TypeError(f"{name}: fields differ between the JAX package "
+                            "and the port")
+        return cls(**{k: (torch_dtype(v) if k == "dtype"
+                          else from_jax_numpy(v, device))
+                      for k, v in ((n, getattr(obj, n)) for n in names)})
     if isinstance(obj, tuple):
         return tuple(from_jax_numpy(v, device) for v in obj)
     if isinstance(obj, list):

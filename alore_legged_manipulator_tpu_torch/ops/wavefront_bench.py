@@ -12,7 +12,8 @@ PyTorch versions, sweep counts included.  The large cases are then
 timed with CUDA events, the strip lengths in turns (forward, then
 backward): once as the wrapper is called and once from a CUDA graph,
 which leaves the host's share out; the runtime's occupancy report is
-printed for each.  With `--parent DIR`, a checkout of an earlier commit
+printed for each, and each shape's plain versions are timed beside its
+bound (`bound`, the least time the card could take).  With `--parent DIR`, a checkout of an earlier commit
 of this repository, that commit's kernels are timed on the same inputs
 in a process of their own, before and after (parent, this, this,
 parent).  Then the time of one sweep in which a single strip recomputes
@@ -24,7 +25,8 @@ recomputed, the share of its warp-sweeps in which the warp had such a
 strip, and the share of those warps that took the path without mask
 tests.  One JSON object per line.
 
-The grid makers here are also what chip_smoke.py draws its inputs from.
+The grid makers, `time_ms` and `bound` here are also what chip_smoke.py
+uses.
 """
 from __future__ import annotations
 
@@ -96,6 +98,33 @@ def serpentine_grid(H, W):
         occ[i, W - 1 if n % 2 == 0 else 0] = False
     last = H - 1 if (H - 1) % 2 == 0 else H - 2
     return (occ[None], np.array([[0, 0]]), np.array([[last, W // 2]]))
+
+
+# H100 SXM published peaks (NVIDIA data sheet; 700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 operations per cell: one relaxation sweep (6 mins among the eight
+# candidates, 2 adds, 2 mins with the old value) and the policy pass
+# (8 adds, 8 compares)
+OPS_PER_CELL_SWEEP = 10
+OPS_PER_CELL_POLICY = 16
+
+
+def bound(B, H, W, sweeps_total, packed: bool):
+    """Least time (ms) the card could take for one call, and what bounds
+    it: the larger of the bytes the function must move (1 B of mask in,
+    a 4 B field out, and for K1 a 4 B packed word out, per cell) over
+    the HBM rate and the f32 operations these inputs need (their sweeps,
+    summed over lanes, times the cells of a lane, plus K1's policy pass)
+    over the f32 peak."""
+    cells = B * H * W
+    t_bytes = cells * (1 + 4 + (4 if packed else 0)) / HBM_BYTES_PER_S * 1e3
+    ops = sweeps_total * H * W * OPS_PER_CELL_SWEEP
+    if packed:
+        ops += cells * OPS_PER_CELL_POLICY
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
 
 
 def time_ms(fn, iters, warmup=2):
@@ -343,8 +372,19 @@ def main(argv=None) -> int:
                 times[S]["k2"].append(time_ms(k2, iters))
                 times[S]["k1_graph"].append(graph_ms(k1, iters))
                 times[S]["k2_graph"].append(graph_ms(k2, iters))
-        print(json.dumps(dict(shape=label, enqueue_us=host_us(
-            lambda: wfc.wavefront_packed_cuda(blk, g)))), flush=True)
+        _, sweeps = wfc.octile_distance_field_cuda(blk, g, return_sweeps=True)
+        sw = int(sweeps.to(torch.int64).sum())
+        (b1, by1), (b2, by2) = (bound(B, H, W, sw, True),
+                                bound(B, H, W, sw, False))
+        print(json.dumps(dict(
+            shape=label, enqueue_us=host_us(
+                lambda: wfc.wavefront_packed_cuda(blk, g)),
+            sweeps_mean=sw / B, k1_bound_ms=b1, k1_bound_by=by1,
+            k2_bound_ms=b2, k2_bound_by=by2,
+            k1_plain_ms=time_ms(lambda: wf.wavefront_packed_torch(blk, g), 1,
+                                warmup=1),
+            k2_plain_ms=time_ms(lambda: wf.octile_distance_field_torch(blk, g),
+                                1, warmup=1))), flush=True)
         for S in strips:
             print(json.dumps(dict(
                 shape=label, strip=S, k1_ms=times[S]["k1"],

@@ -8,15 +8,15 @@ MINCO back-end push planning (optimizer.cpp:169-472) and the NMPC +
 ICR-EKF closed-loop push.  The JAX program vmaps one mission; here every
 tensor carries the leading fleet axis.
 
-Missed legs are recovered by correction legs, either inside the fleet
-program for every lane (`correction_ticks > 0`) or afterwards for the
-missed lanes only (`correct_missed_legs`, `correct_until_delivered`),
-and `mission_seconds_exact` bills the simulated time of what really ran.
+The push runs on the kinematic ICR plant (`plant="kinematic"`) or on
+the rigid-body contact plant with the ICR identified online
+(`plant="physics"`, runtime/closed_loop_physics.py).  Missed legs are
+recovered by correction legs, either inside the fleet program for every
+lane (`correction_ticks > 0`) or afterwards for the missed lanes only
+(`correct_missed_legs`, `correct_until_delivered`), and
+`mission_seconds_exact` bills the simulated time of what really ran.
 Eager PyTorch compiles nothing, so a correction round gathers exactly
 the missed lanes, with no padding and no program cache.
-
-Only the kinematic plant is ported; plant="physics" raises
-NotImplementedError.
 """
 from __future__ import annotations
 
@@ -35,6 +35,7 @@ from ..planner.backend import BackendConfig, plan_backend
 from ..planner.flat_traj import FlatTraj, Polynome
 from ..utils.precision import resolve_device, set_precision_policy
 from .closed_loop import LoopConfig, simulate_tracking
+from .closed_loop_physics import PhysicsLoopConfig, simulate_tracking_physics
 
 
 class FleetFsmConfig(NamedTuple):
@@ -244,7 +245,9 @@ def _painted_esdf(esdf: ESDF, centers, half_extents) -> ESDF:
 def _push_leg(start_xy, start_yaw, target, esdf: ESDF, true_icr: ICRParams,
               cfg: MissionFleetConfig, n_ticks: int, seed):
     """One planned push leg for every lane: front end -> MINCO back end ->
-    Polynome handoff -> NMPC + EKF closed-loop tracking.  Returns
+    Polynome handoff -> NMPC + EKF closed-loop tracking on the configured
+    plant (the contact plant identifies its ICR online and ignores
+    `true_icr` and `cfg.loop`, as in the JAX package).  Returns
     (obj_final (B, 3), track_err_max, plan_err, collision, traj)."""
     dtype = start_xy.dtype
     if cfg.frontend_mode == "wavefront":
@@ -263,17 +266,17 @@ def _push_leg(start_xy, start_yaw, target, esdf: ESDF, true_icr: ICRParams,
         init_state=flat.start_state, tail_state=res.tail_state,
         start_position=flat.start_xytheta, icr=icr_vec)
     tt = build_tracked_traj(msg, n_grid=256)
-    tr = simulate_tracking(tt, true_icr, n_ticks, cfg.loop, seed=seed,
-                           x0=tt.seq[:, 0])
-    traj = tr.xytheta
+    if cfg.plant == "physics":
+        tr = simulate_tracking_physics(
+            tt, n_ticks, cfg.phys_loop or PhysicsLoopConfig(), seed=seed)
+        traj = tr.obj_xytheta
+    else:
+        tr = simulate_tracking(tt, true_icr, n_ticks, cfg.loop, seed=seed,
+                               x0=tt.seq[:, 0])
+        traj = tr.xytheta
     return (traj[:, -1], torch.amax(tr.pos_err, dim=1),
             torch.linalg.vector_norm(res.final_xy_err, dim=-1),
             res.collision, traj)
-
-
-def _check_supported(cfg: MissionFleetConfig):
-    if cfg.plant != "kinematic":
-        raise NotImplementedError(f"plant={cfg.plant!r} is not ported yet")
 
 
 def _esdf_on(esdf: ESDF, dev) -> ESDF:
@@ -297,7 +300,6 @@ def run_mission(items, targets, robot_start, esdf: ESDF,
     of the reference FSM's replan-until-within-tolerance); its outcome
     applies only to the lanes whose main leg missed deliver_tol.
     """
-    _check_supported(cfg)
     dev = resolve_device(device)
     set_precision_policy()
     dtype = torch.as_tensor(robot_start).dtype
@@ -414,7 +416,6 @@ def correct_missed_legs(result: MissionFleetResult, targets, esdf: ESDF,
     result / targets may carry a leading fleet axis or be one mission.
     Returns (new_result, n_corrected).
     """
-    _check_supported(cfg)
     set_precision_policy()
     batched = result.object_err.dim() == 2
     r = result if batched else MissionFleetResult(*(a[None] for a in result))

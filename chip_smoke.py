@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases, each printing lines of its own:
+Phases, each printing lines of its own under a header with the seconds
+since the script started:
 
 1. Card and build: the card's name and power limit, the precision
    policy, and the build of the wavefront kernels from
@@ -28,17 +29,36 @@ Phases, each printing lines of its own:
    just after: K1 must have run once per leg and once per correction
    round, K2 once.  Lanes delivered before the rounds must come out of
    them bit for bit.
-4. The ring-direction fleet of the first slice, cut in depth to K=1 (B=64,
-   no corrections), with its own launch counts; the host wall time of each
-   phase of the production fleet's first leg, with the ring back end on
-   the same leg beside the compact one; and a small fleet on the card
-   through the kernel and on the CPU through the plain versions, compared
-   on front end and deliveries.
-5. Variants on the card at B=64, N=50: the NMPC tick in its dense
+4. The ring-direction fleet of the first slice, cut in depth to K=1,
+   approach_ticks=300, push_ticks=200 (B=64, no corrections), with its
+   own launch counts: its plans must reach their goals, its pushes follow
+   them, and its objects advance as far as the production fleet's first
+   leg does in as many ticks.  Then the host wall time of each phase of
+   the production fleet's first leg with the push cut to 60 ticks
+   (shares, per-tick times and dispatched operations per tick; both
+   plants are run a few ticks first), with the ring back end and the
+   same push on the contact plant beside it.  Then the first legs of 4
+   missions, cut like the ring fleet, with plant noise off, on the card
+   through the kernel and on the CPU through the plain versions: the
+   front end agrees to 1e-9 in f64; on each device the plans reach their
+   goals and the pushes follow them, and the card's objects advance at
+   the CPU's pace.
+5. The contact plant.  The fleet at full width on it: B=64, K=1,
+   plant="physics", the production profile otherwise, then
+   `correct_until_delivered` with 300-tick legs; K1 must run 1 + rounds
+   times, delivered lanes must come out of the rounds bit for bit, and
+   `delivered_frac` after the rounds must reach 0.75.  Then 4 lanes
+   through 100 `physics_substep`s (servo, grasp weld, contact, a static
+   box) in float64 on the card and on the CPU, agreeing to 1e-9.  Then
+   the two-object arrangement mission of tests/test_arrangement.py on the
+   contact plant on the card (ordering -> task FSM -> JPS front end ->
+   PlanManager -> push), held to that test's bounds, with host wall time
+   by phase.
+6. Variants on the card at B=64, N=50: the NMPC tick in its dense
    triangular, assoc and seq modes against the matrix-free path, a
    32-piece spline by cyclic reduction against the dense 6N system, and
    the ring, compact and dense solver directions on a batched quadratic.
-6. The `kernels` JSON line, and as the last line
+7. The `kernels` JSON line, the script's wall time, and as the last line
    {"ok": true, "device": {...}}.
 
 Fails (non-zero exit, no result line) without a CUDA card or without the
@@ -55,20 +75,13 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM published peaks (NVIDIA data sheet; 700 W)
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
 # shared memory: 132 SMs x 128 B/clock x 1.98 GHz
 SMEM_BYTES_PER_S = 132 * 128 * 1.98e9
-# f32 operations per cell: one relaxation sweep (6 mins among the eight
-# candidates, 2 adds, 2 mins with the old value) and the policy pass
-# (8 adds, 8 compares)
-OPS_PER_CELL_SWEEP = 10
-OPS_PER_CELL_POLICY = 16
+T_START = time.perf_counter()
 
 
 def _phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T_START:.1f} s)", flush=True)
 
 
 def check_identical(wf, wfc, label, occ, goals, n_iters=None):
@@ -96,7 +109,8 @@ def check_identical(wf, wfc, label, occ, goals, n_iters=None):
 def check_kernels(wf, wfc, label, occ, goals, starts, path_len, iters):
     """Bit-exactness and timings of K1 and K2 against the plain versions
     at one shape; returns {kernel: measurements}."""
-    from alore_legged_manipulator_tpu_torch.ops.wavefront_bench import time_ms
+    from alore_legged_manipulator_tpu_torch.ops.wavefront_bench import (
+        bound, time_ms)
     B, H, W = occ.shape
     blk, g, sweeps, (err1, err2) = check_identical(wf, wfc, label, occ, goals)
     s = torch.as_tensor(starts, device="cuda")
@@ -110,26 +124,21 @@ def check_kernels(wf, wfc, label, occ, goals, starts, path_len, iters):
     S = wfc.strip_geometry(H, W, None, B <= 2 * wfc._sm_count(0)).strip
     smem_bytes_cell = 4.0 * (2 * (S + 2) + 2 + S) / S
 
-    cells = B * H * W
     sw = int(sweeps.to(torch.int64).sum())             # sum over lanes
     out = {}
-    for name, fn, plain, err, bytes_cell, ops in (
+    for name, fn, plain, err in (
             ("wavefront_packed",
              lambda: wfc.wavefront_packed_cuda(blk, g),
-             lambda: wf.wavefront_packed_torch(blk, g), err1, 1 + 4 + 4,
-             sw * H * W * OPS_PER_CELL_SWEEP + cells * OPS_PER_CELL_POLICY),
+             lambda: wf.wavefront_packed_torch(blk, g), err1),
             ("octile_distance_field",
              lambda: wfc.octile_distance_field_cuda(blk, g),
-             lambda: wf.octile_distance_field_torch(blk, g), err2, 1 + 4,
-             sw * H * W * OPS_PER_CELL_SWEEP)):
+             lambda: wf.octile_distance_field_torch(blk, g), err2)):
         ms = time_ms(fn, iters)
         plain_ms = time_ms(plain, 1, warmup=1)
-        t_bytes = cells * bytes_cell / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / F32_OPS_PER_S * 1e3
+        bound_ms, bound_by = bound(B, H, W, sw, name == "wavefront_packed")
         out[name] = dict(
             shape=f"{B}x{H}x{W}", ms=ms, plain_ms=plain_ms, max_abs_err=err,
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bound_ms=bound_ms, bound_by=bound_by,
             smem_full_sweeps_ms=(sw * H * W * smem_bytes_cell
                                  / SMEM_BYTES_PER_S * 1e3),
             smem_bound_first_design_ms=(sw * H * W * 9 * 4
@@ -147,15 +156,51 @@ def check_kernels(wf, wfc, label, occ, goals, starts, path_len, iters):
     return out
 
 
-def leg_phases(mf, items, targets, robot0, esdf, icr, cfg):
+def dispatched_ops(fn) -> int:
+    """Number of PyTorch operations `fn` dispatches, views included: what
+    a launch-bound path pays for on any device."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+    with Count(), torch.no_grad():
+        fn()
+    return Count.n
+
+
+def ops_per_tick(tt, icr, loop_cfg):
+    """Operations one closed-loop tick dispatches on each plant, for the
+    lanes of `tt` (the difference of a 4-tick and a 2-tick run)."""
+    from alore_legged_manipulator_tpu_torch.runtime.closed_loop import (
+        simulate_tracking)
+    from alore_legged_manipulator_tpu_torch.runtime.closed_loop_physics import (
+        PhysicsLoopConfig, simulate_tracking_physics)
+    runs = {"kinematic": lambda k: simulate_tracking(tt, icr, k, loop_cfg),
+            "physics": lambda k: simulate_tracking_physics(
+                tt, k, PhysicsLoopConfig())}
+    return {name: (dispatched_ops(lambda: run(4))
+                   - dispatched_ops(lambda: run(2))) // 2
+            for name, run in runs.items()}
+
+
+def leg_phases(mf, items, targets, robot0, esdf, icr, cfg, push_ticks):
     """Host wall time of each phase of the fleet's first leg, each phase
-    ended by a synchronize: the steps of run_mission and _push_leg."""
+    ended by a synchronize: the steps of run_mission and _push_leg, with
+    the push cut to `push_ticks` ticks and the closed loop also reported
+    per tick.  Beside the total: the ring back end on the same leg, and
+    the same push on the contact plant (`simulate_tracking_physics`)."""
     from alore_legged_manipulator_tpu_torch.control.tracked_traj import (
         build_tracked_traj)
     from alore_legged_manipulator_tpu_torch.planner.backend import plan_backend
     from alore_legged_manipulator_tpu_torch.planner.flat_traj import Polynome
     from alore_legged_manipulator_tpu_torch.runtime.closed_loop import (
         simulate_tracking)
+    from alore_legged_manipulator_tpu_torch.runtime.closed_loop_physics import (
+        PhysicsLoopConfig, simulate_tracking_physics)
     dev = torch.device("cuda")
     it = torch.as_tensor(items, device=dev)
     tg = torch.as_tensor(targets, device=dev)
@@ -186,16 +231,29 @@ def leg_phases(mf, items, targets, robot0, esdf, icr, cfg):
             piece_times=res.times, init_state=flat.start_state,
             tail_state=res.tail_state, start_position=flat.start_xytheta,
             icr=icr_vec), n_grid=256))
+        # counting runs a few ticks of both plants first: the timed ticks
+        # carry no first-use costs of the contact plant
+        ops = ops_per_tick(tt, icr, cfg.loop)
         timed("closed_loop", lambda: simulate_tracking(
-            tt, icr, cfg.push_ticks, cfg.loop, seed=0, x0=tt.seq[:, 0]))
-        # the ring direction on the very same leg (not part of the total)
+            tt, icr, push_ticks, cfg.loop, seed=0, x0=tt.seq[:, 0]))
+        # beside the total: the ring direction on the very same leg, and
+        # the same push on the contact plant
         res_ring = timed("back_end_ring", lambda: plan_backend(
             flat, leg_esdf,
             cfg.backend._replace(solver_direction="ring")))
+        timed("closed_loop_physics", lambda: simulate_tracking_physics(
+            tt, push_ticks, PhysicsLoopConfig(), seed=0))
     ring_s = times.pop("back_end_ring")
+    phys_s = times.pop("closed_loop_physics")
     total = sum(times.values())
     print("first-leg phases (s): " + json.dumps(
-        {**times, "leg_total": total,
+        {**times, "leg_total": total, "push_ticks": push_ticks,
+         "shares": {k: v / total for k, v in times.items()},
+         "closed_loop_s_per_tick": times["closed_loop"] / push_ticks,
+         "approach_s_per_tick": times["approach"] / cfg.approach_ticks,
+         "closed_loop_physics_s_per_tick": phys_s / push_ticks,
+         "physics_over_kinematic_tick": phys_s / times["closed_loop"],
+         "ops_per_tick": ops,
          "solver_direction": cfg.backend.solver_direction,
          "back_end_stage2_iters_max": int(res.stage2_iters.max()),
          "back_end_replans_max": int(res.replans.max()),
@@ -238,6 +296,295 @@ def assert_finite(res, shape_bk, push_ticks):
         assert v.device.type == "cuda", f"{name} left the card"
         if v.dtype.is_floating_point:
             assert bool(torch.isfinite(v).all()), f"non-finite {name}"
+
+
+def advance(traj):
+    """How far each object moved over a push trace (B, T, 3)."""
+    return torch.linalg.vector_norm(traj[:, -1, :2] - traj[:, 0, :2], dim=-1)
+
+
+def ring_fleet(mf, wf, wfc, items32, targets32, robot0, esdf, icr, field_m,
+               prod):
+    """The first slice's ring-direction fleet, cut in depth to K=1 and
+    300/200 ticks, with its own launch counts; `prod` is the production
+    fleet's result before its rounds.  Returns the launches."""
+    _phase("ring fleet B=64 K=1 on the card (no corrections, cut in depth)")
+    B = items32.shape[0]
+    cfg_ring = mf.MissionFleetConfig(approach_ticks=300, push_ticks=200)
+    assert cfg_ring.backend.solver_direction == "ring"
+    wfc.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_ring = mf.run_mission(items32[:, :1], targets32[:, :1], robot0, esdf,
+                              icr, cfg_ring)
+    torch.cuda.synchronize()
+    wall_ring = time.perf_counter() - t0
+    field_r, _, _ = mission_field_through_k2(wf, esdf, targets32, cfg_ring, B)
+    launches_ring = dict(wfc.LAUNCHES)
+    print("launches during the ring fleet:", json.dumps(launches_ring),
+          flush=True)
+    assert launches_ring["wavefront_packed"] == 1
+    assert launches_ring["octile_distance_field"] == 1
+    assert torch.equal(field_r, field_m)
+    assert_finite(res_ring, (B, 1), cfg_ring.push_ticks)
+    ring = fleet_summary(res_ring)
+    # a 2 s push delivers no 4-7 m leg.  Its outcome: how far the objects
+    # advance, against the production fleet's first leg (same items and
+    # targets, its map painted with the other objects) over as many ticks
+    n = cfg_ring.push_ticks
+    adv_ring = advance(res_ring.push_traj[:, 0])
+    adv_prod = advance(prod.push_traj[:, 0, :n])
+    ring["advance_mean_m"] = float(adv_ring.mean())
+    ring["advance_min_m"] = float(adv_ring.min())
+    ring["production_advance_mean_m"] = float(adv_prod.mean())
+    ring["advance_ratio"] = ring["advance_mean_m"] \
+        / ring["production_advance_mean_m"]
+    print(json.dumps({"missions": B, "objects": 1, "solver_direction": "ring",
+                      "approach_ticks": cfg_ring.approach_ticks,
+                      "push_ticks": cfg_ring.push_ticks,
+                      "fleet_wall_s": wall_ring, **ring}), flush=True)
+    # the plans reach their goals, the pushes follow them, and the
+    # objects advance at the production fleet's pace
+    assert ring["plan_err_max"] < 0.02, ring
+    assert ring["track_err_max"] < 0.2, ring
+    assert ring["collision_frac"] == 0.0, ring
+    assert 0.8 <= ring["advance_ratio"] <= 1.25, ring
+    return launches_ring
+
+
+def small_fleet(dev, items, targets, robot0, occ, cfg, icr):
+    """The first legs of a few missions on one device: the front end in
+    f64 and the f32 mission.  Returns (FlatTraj, MissionFleetResult) on
+    the CPU."""
+    from alore_legged_manipulator_tpu_torch.ops.esdf import esdf_from_occupancy
+    from alore_legged_manipulator_tpu_torch.runtime import mission_fleet as mf
+    e = esdf_from_occupancy(torch.as_tensor(occ, device=dev), torch.zeros(2),
+                            0.1)
+
+    def f64(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=dev)
+    B = items.shape[0]
+    flat = mf._wavefront_flat(e, f64(items[:, 0]), f64(np.zeros(B)),
+                              f64(targets[:, 0]), cfg)
+    r = mf.run_mission(items, targets, robot0, e, icr, cfg, device=dev)
+    return (type(flat)(*(t.cpu() for t in flat)),
+            type(r)(*(t.cpu() for t in r)))
+
+
+def small_fleet_card_vs_cpu(items32, targets32, robot0, occ, cfg, icr):
+    """The first legs of 4 of the production missions (unpainted map, cut
+    to 300/200 ticks, plant noise off) on the card through the kernel and
+    on the CPU through the plain versions.  The front end agrees to 1e-9
+    in f64 (only libm rounding differs).  The f32 back ends settle on
+    plans apart (the back end is chaotic: tests/test_torch_arrangement.py),
+    so a 2 s push ends at another point of its path: each device's plans
+    must reach their goals and its pushes follow them, and the card's
+    objects advance at the CPU's pace."""
+    Bs = 4
+    loop = cfg.loop._replace(plant=cfg.loop.plant._replace(add_noise=False))
+    cfg_s = cfg._replace(approach_ticks=300, push_ticks=200, loop=loop)
+    args = (items32[:Bs, :1], targets32[:Bs, :1], robot0[:Bs], occ, cfg_s,
+            icr)
+    out, wall = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out[dev] = small_fleet(dev, *args)
+        wall[dev] = time.perf_counter() - t0
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        same = (torch.allclose(a, b, rtol=0, atol=1e-9)
+                if a.dtype.is_floating_point else torch.equal(a, b))
+        assert same, "front end differs between card and CPU"
+    rc, rp = out["cuda"][1], out["cpu"][1]
+    end_gap = torch.linalg.vector_norm(
+        rc.push_traj[:, 0, -1, :2] - rp.push_traj[:, 0, -1, :2], dim=-1)
+    adv = {dev: advance(r.push_traj[:, 0]) for dev, r in (("cuda", rc),
+                                                          ("cpu", rp))}
+    ratio = float(adv["cuda"].mean() / adv["cpu"].mean())
+    print("front end agrees to 1e-9 (f64); " + json.dumps({
+        "push_end_gap_m": end_gap.tolist(),
+        "advance_card_m": adv["cuda"].tolist(),
+        "advance_cpu_m": adv["cpu"].tolist(), "advance_ratio": ratio,
+        "plan_err_card": rc.plan_err.flatten().tolist(),
+        "plan_err_cpu": rp.plan_err.flatten().tolist(),
+        "track_err_max_card": rc.track_err_max.flatten().tolist(),
+        "track_err_max_cpu": rp.track_err_max.flatten().tolist(),
+        "wall_s": wall}), flush=True)
+    for r in (rc, rp):
+        assert float(r.plan_err.max()) < 0.02, r.plan_err
+        assert float(r.track_err_max.max()) < 0.2, r.track_err_max
+        assert not bool(r.collision.any())
+    assert 0.8 <= ratio <= 1.25, f"card advance ratio {ratio}"
+
+
+def physics_fleet(mf, wfc, esdf, icr, backend_cfg):
+    """The contact-plant fleet at full width: B=64, K=1, plant="physics",
+    the production profile otherwise, then correct_until_delivered with
+    300-tick legs.  Returns (K1 launches, summary)."""
+    B, corr_ticks = 64, 300
+    cfg = mf.MissionFleetConfig(approach_ticks=700, push_ticks=550,
+                                backend=backend_cfg, plant="physics")
+    items, targets = mf.spaced_scenarios(B, 1, np.random.default_rng(0))
+    items, targets = items.astype(np.float32), targets.astype(np.float32)
+    robot0 = np.tile(np.array([1.0, 4.0, 0.0], np.float32), (B, 1))
+    # the largest grasp gap of every push, read from the plant's result
+    gaps = []
+    sim = mf.simulate_tracking_physics
+
+    def recording(*a, **kw):
+        out = sim(*a, **kw)
+        gaps.append(float(out.grasp_gap.max()))
+        return out
+    mf.simulate_tracking_physics = recording
+    try:
+        wfc.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        base = mf.run_mission(items, targets, robot0, esdf, icr, cfg)
+        torch.cuda.synchronize()
+        wall_fleet = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res, miss_counts = mf.correct_until_delivered(base, targets, esdf,
+                                                      icr, cfg, corr_ticks)
+        torch.cuda.synchronize()
+        wall_rounds = time.perf_counter() - t0
+        launches = dict(wfc.LAUNCHES)
+    finally:
+        mf.simulate_tracking_physics = sim
+    rounds = len(miss_counts)
+    print("launches during the contact-plant fleet:", json.dumps(launches),
+          flush=True)
+    assert launches["wavefront_packed"] == 1 + rounds, \
+        f"K1 ran {launches['wavefront_packed']} times, not 1 + {rounds}"
+    assert_finite(base, (B, 1), cfg.push_ticks)
+    assert_finite(res, (B, 1), cfg.push_ticks)
+    before, after = fleet_summary(base), fleet_summary(res)
+    keep = base.delivered
+    for name in ("object_err", "track_err_max", "collision", "delivered",
+                 "push_traj"):
+        assert torch.equal(getattr(res, name)[keep],
+                           getattr(base, name)[keep]), \
+            f"{name} of a delivered lane changed in the rounds"
+    summary = {"missions": B, "objects": 1, "plant": "physics",
+               "correction_ticks": corr_ticks, "fleet_wall_s": wall_fleet,
+               "rounds_wall_s": wall_rounds, "rounds": rounds,
+               "miss_counts": miss_counts,
+               "grasp_gap_max": max(gaps), "grasp_gap_max_per_push": gaps,
+               "before_rounds": before, "after_rounds": after}
+    print(json.dumps(summary), flush=True)
+    assert np.isfinite(max(gaps))
+    assert after["delivered_frac"] >= before["delivered_frac"]
+    assert after["delivered_frac"] >= 0.75, \
+        f"contact-plant delivered_frac {after['delivered_frac']} below 0.75"
+    return launches, summary
+
+
+def physics_card_vs_cpu():
+    """4 lanes through 100 physics_substeps (servo, grasp weld, contact
+    with the object and with a static box) in float64 on the card and on
+    the CPU: poses and velocities agree to 1e-9."""
+    from alore_legged_manipulator_tpu_torch.world import physics2d as ph
+    rng = np.random.default_rng(2)
+    B = 4
+    yaw = rng.uniform(-np.pi, np.pi, B)
+    pose = np.zeros((B, 3, 3))
+    pose[:, :, 2] = yaw[:, None]
+    for k, dist in ((1, 0.74), (2, 1.55)):
+        pose[:, k, 0] = dist * np.cos(yaw)
+        pose[:, k, 1] = dist * np.sin(yaw)
+    mass = np.broadcast_to([60.0, 15.0, np.inf], (B, 3)).copy()
+    he = np.broadcast_to([[0.45, 0.3], [0.3, 0.3], [0.3, 0.8]], (B, 3, 2)).copy()
+    cmd = np.stack([rng.uniform(0.2, 0.5, B), rng.uniform(-0.1, 0.1, B),
+                    rng.uniform(-0.3, 0.3, B)], -1)
+    cfg = ph.PhysicsConfig(grasp_impulse_cap=600.0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        def t(a):
+            return torch.as_tensor(np.asarray(a, np.float64), device=dev)
+        st = ph.BodyState(pose=t(pose), vel=t(np.zeros((B, 3, 3))),
+                          mass=t(mass), inertia=ph.box_inertia(t(mass), t(he)),
+                          half_ext=t(he), box_off=t(np.zeros((B, 3, 2))),
+                          mu_ground=t(np.full((B, 3), 0.4)))
+        grasp = (torch.tensor(True, device=dev), 0, t([0.65, 0.0]), 1,
+                 t([-0.3, 0.0]), torch.tensor(True, device=dev))
+        mask = torch.tensor([True, False, False], device=dev)
+        pn = 0.0
+        for _ in range(100):
+            w = ph.servo_forces(st, 0, t(cmd), cfg)
+            st, dbg = ph.physics_substep(st, w, [(0, 1), (1, 2)], cfg,
+                                         grasp=grasp, servo_mask=mask)
+            pn = max(pn, float(dbg.pn.max()))
+        out[dev] = (st, pn)
+    (gpu, pn_gpu), (cpu, pn_cpu) = out["cuda"], out["cpu"]
+    err = max(float((gpu.pose.cpu() - cpu.pose).abs().max()),
+              float((gpu.vel.cpu() - cpu.vel).abs().max()))
+    moved = float((cpu.pose[:, 1, :2] - torch.as_tensor(pose[:, 1, :2])).norm(
+        dim=-1).min())
+    print("contact plant, 4 lanes x 100 substeps (f64), card vs CPU: "
+          + json.dumps({"max_abs_err": err, "pn_max": pn_cpu,
+                        "object_moved_min_m": moved}), flush=True)
+    assert np.isfinite(err) and err < 1e-9, f"card vs CPU physics: {err}"
+    assert pn_cpu > 0 and pn_gpu > 0 and moved > 0.05
+    assert bool(torch.isfinite(gpu.pose).all())
+    return err
+
+
+def arrangement_on_card():
+    """The two-object arrangement mission (tests/test_arrangement.py's
+    scene) on the contact plant, on the card, with host wall time by
+    phase.  Returns the report's summary."""
+    from alore_legged_manipulator_tpu_torch.mission import plan_manager as pm
+    from alore_legged_manipulator_tpu_torch.runtime import arrangement as arr
+    occ = np.zeros((100, 100), bool)
+    occ[48:52, 20:45] = True
+    mission = arr.ArrangementMission(
+        occ=occ, lower=(0.0, 0.0), res=0.1,
+        items=[(2.5, 2.5, 0.0), (2.5, 7.5, 0.0)],
+        targets=[(8.0, 7.5, 0.0), (8.0, 6.0, 0.0)], use_physics_plant=True)
+    phases = {}
+    originals = []
+
+    def time_in(module, name, bucket):
+        fn = getattr(module, name)
+        originals.append((module, name, fn))
+
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            phases[bucket] = phases.get(bucket, 0.0) \
+                + time.perf_counter() - t0
+            return out
+        setattr(module, name, wrapped)
+
+    time_in(arr, "jps_search", "ordering_and_approach_jps")
+    time_in(pm, "plan_frontend", "front_end")
+    time_in(pm, "esdf_from_occupancy", "esdf_updates")
+    time_in(pm, "plan_backend", "back_end")
+    time_in(pm, "build_tracked_traj", "tracked_traj")
+    time_in(arr, "simulate_tracking_physics", "tracking")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = mission.run(robot_start=(5.0, 1.0, 1.57))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for module, name, fn in originals:
+            setattr(module, name, fn)
+    phases["other_host"] = wall - sum(phases.values())
+    summary = {"order": rep.order, "delivered": rep.delivered,
+               "final_object_err": rep.final_object_err,
+               "push_tracking_err_p95": rep.push_tracking_err_p95,
+               "sim_time_s": rep.sim_time_s, "wall_s": wall,
+               "wall_by_phase_s": phases}
+    print("arrangement mission, 2 objects, contact plant, on the card: "
+          + json.dumps(summary), flush=True)
+    assert all(rep.delivered), rep
+    assert max(rep.final_object_err) < 0.15, rep.final_object_err
+    assert rep.push_tracking_err_p95 < 0.25, rep.push_tracking_err_p95
+    assert len(rep.order) == 2
+    return summary
 
 
 def variants_on_card():
@@ -506,66 +853,27 @@ def main() -> int:
     assert after["delivered_frac"] >= 0.85, \
         f"delivered_frac {after['delivered_frac']} after the rounds below 0.85"
 
-    # ---- 4. the first slice's ring fleet (depth cut to K=1), leg phases ----
-    _phase("ring fleet B=64 K=1 on the card (no corrections)")
-    cfg_ring = mf.MissionFleetConfig(approach_ticks=700, push_ticks=550)
-    assert cfg_ring.backend.solver_direction == "ring"
-    wfc.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res_ring = mf.run_mission(items32[:, :1], targets32[:, :1], robot0, esdf,
-                              icr, cfg_ring)
-    torch.cuda.synchronize()
-    wall_ring = time.perf_counter() - t0
-    field_r, blk_r, goal_r = mission_field_through_k2(wf, esdf, targets32,
-                                                      cfg_ring, B)
-    launches_ring = dict(wfc.LAUNCHES)
-    print("launches during the ring fleet:", json.dumps(launches_ring),
-          flush=True)
-    assert launches_ring["wavefront_packed"] == 1
-    assert launches_ring["octile_distance_field"] == 1
-    assert torch.equal(field_r, field_m)
-    assert_finite(res_ring, (B, 1), cfg_ring.push_ticks)
-    ring = fleet_summary(res_ring)
-    print(json.dumps({"missions": B, "objects": 1, "solver_direction": "ring",
-                      "fleet_wall_s": wall_ring, **ring}), flush=True)
-    assert ring["delivered_frac"] >= 0.75, \
-        f"ring delivered_frac {ring['delivered_frac']} below 0.75"
-    leg_phases(mf, items32, targets32, robot0, esdf, icr, cfg)
-
-    # a small fleet (the first legs of 8 of these missions, unpainted map)
-    # on the card through the kernel and on the CPU through the plain
-    # versions: the front end agrees to 1e-9 in f64 (only libm rounding
-    # differs), and the f32 missions deliver alike
+    # ---- 4. the first slice's ring fleet (depth cut to K=1), leg phases,
+    #      a small fleet card vs CPU ----
+    launches_ring = ring_fleet(mf, wf, wfc, items32, targets32, robot0, esdf,
+                               icr, field_m, base)
+    leg_phases(mf, items32, targets32, robot0, esdf, icr, cfg, push_ticks=60)
     _phase("small fleet: card vs CPU plain")
-    Bs = 8
-    it_s, tg_s = items32[:Bs, :1], targets32[:Bs, :1]
-    occ_t = torch.as_tensor(occ)
-    out = {}
-    for dev in ("cuda", "cpu"):
-        e = esdf_from_occupancy(occ_t.to(dev), torch.zeros(2), 0.1)
+    small_fleet_card_vs_cpu(items32, targets32, robot0, occ, cfg, icr)
 
-        def f64(a):
-            return torch.as_tensor(a, dtype=torch.float64, device=dev)
-        flat = mf._wavefront_flat(e, f64(it_s[:, 0]), f64(np.zeros(Bs)),
-                                  f64(tg_s[:, 0]), cfg)
-        r = mf.run_mission(it_s, tg_s, robot0[:Bs], e, icr, cfg, device=dev)
-        out[dev] = (flat, r)
-    for a, b in zip(out["cuda"][0], out["cpu"][0]):
-        same = (torch.allclose(a.cpu(), b, rtol=0, atol=1e-9)
-                if a.dtype.is_floating_point else torch.equal(a.cpu(), b))
-        assert same, "front end differs between card and CPU"
-    dc, dp = out["cuda"][1].delivered.cpu(), out["cpu"][1].delivered
-    print(f"front end agrees to 1e-9 (f64); delivered card "
-          f"{dc.flatten().tolist()} cpu {dp.flatten().tolist()}", flush=True)
-    assert int(dc.sum()) >= int(dp.sum()) - 1, \
-        "the card delivers fewer legs than the CPU reference"
+    # ---- 5. the contact plant ----
+    _phase("contact-plant fleet B=64 K=1 on the card (compact, corrections)")
+    launches_phys, _ = physics_fleet(mf, wfc, esdf, icr, cfg.backend)
+    _phase("contact plant: card vs CPU")
+    physics_card_vs_cpu()
+    _phase("arrangement mission on the card, contact plant")
+    arrangement_on_card()
 
-    # ---- 5. variants on the card ----
+    # ---- 6. variants on the card ----
     _phase("variants on the card")
     variants_on_card()
 
-    # ---- 6. result lines ----
+    # ---- 7. result lines ----
     kern = []
     for name, replaces in (
             ("wavefront_packed",
@@ -578,6 +886,7 @@ def main() -> int:
             source="alore_legged_manipulator_tpu_torch/csrc/wavefront.cu",
             replaces=replaces, launches=launches[name],
             launches_ring_fleet=launches_ring[name],
+            launches_physics_fleet=launches_phys[name],
             max_abs_err=max(m["max_abs_err"], m100[name]["max_abs_err"],
                             m64[name]["max_abs_err"]),
             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
@@ -587,6 +896,8 @@ def main() -> int:
             ms_100x100=m100[name]["ms"], plain_ms_100x100=m100[name]["plain_ms"],
             bound_ms_100x100=m100[name]["bound_ms"]))
     print(json.dumps({"kernels": kern}), flush=True)
+    print(f"script wall time: {time.perf_counter() - T_START:.1f} s",
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

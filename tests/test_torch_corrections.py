@@ -7,7 +7,8 @@ float64, plant noise off (the only random input; `jax.random` streams are
 not reproduced by the port).  Lane 0's 5 m leg misses that budget, lane
 1's short leg delivers.  The JAX fleet result is converted with
 `from_jax_numpy` and handed to the port's `correct_missed_legs`, so both
-sides correct from the very same state.
+sides correct from the very same state.  The correction rounds on the
+contact plant are held to JAX in tests/test_torch_closed_loop_physics.py.
 """
 import jax
 import jax.numpy as jnp
@@ -348,17 +349,6 @@ def test_straight_front_end_mission():
     assert bool(got.delivered.all())
     assert float(got.object_err.max()) < 0.1
     assert not bool(got.collision.any())
-
-
-def test_physics_plant_still_raises(corrected):
-    res_t = corrected[3]
-    _, e_t = _esdfs()
-    cfg = tmf.MissionFleetConfig(plant="physics")
-    with pytest.raises(NotImplementedError):
-        tmf.correct_missed_legs(res_t, TARGETS, e_t, TICR(*ICR), cfg, CORR)
-    with pytest.raises(NotImplementedError):
-        tmf.correct_until_delivered(res_t, TARGETS, e_t, TICR(*ICR), cfg,
-                                    CORR)
 
 
 def test_default_device_is_the_card(monkeypatch):

@@ -6,9 +6,11 @@ its configs keep the JAX package's field names and defaults.
 * A scan of the port's sources finds no import of either.
 * Every config NamedTuple the port shares with the JAX package has the
   same fields with equal defaults (nested configs compared field by
-  field).
+  field), and so do the dataclass configs (`PlanManagerConfig`,
+  `FsmConfig`), whose dtype field names the same dtype.
 """
 import ast
+import dataclasses
 import os
 import pkgutil
 import subprocess
@@ -18,7 +20,8 @@ from pathlib import Path
 import pytest
 
 import alore_legged_manipulator_tpu_torch as port_pkg
-from alore_legged_manipulator_tpu_torch.convert import _CLASSES, port_class
+from alore_legged_manipulator_tpu_torch.convert import (DATACLASSES, _CLASSES,
+                                                      port_class, torch_dtype)
 
 ROOT = Path(port_pkg.__file__).resolve().parent
 REPO = ROOT.parent
@@ -36,7 +39,11 @@ def test_module_list_covers_the_slice():
     for m in ("ops.wavefront", "ops.wavefront_cuda", "planner.backend",
               "solvers.bfgs", "solvers.lbfgs", "solvers.minco",
               "control.nmpc", "estimator.icr_ekf", "ops.qp",
-              "runtime.mission_fleet", "convert", "utils.precision"):
+              "runtime.mission_fleet", "convert", "utils.precision",
+              "world.physics2d", "runtime.closed_loop_physics",
+              "world.grid_map", "native", "planner.frontend",
+              "mission.ordering", "mission.object_fsm",
+              "mission.plan_manager", "runtime.arrangement"):
         assert f"{port_pkg.__name__}.{m}" in mods
 
 
@@ -113,3 +120,20 @@ def test_class_fields_match(name):
     jax_cls = getattr(importlib.import_module(
         "alore_legged_manipulator_tpu." + _CLASSES[name]), name)
     assert tuple(jax_cls._fields) == tuple(port_class(name)._fields)
+
+
+@pytest.mark.parametrize("name", sorted(DATACLASSES))
+def test_dataclass_config_defaults_match(name):
+    import importlib
+    jax_cls = getattr(importlib.import_module(
+        "alore_legged_manipulator_tpu." + DATACLASSES[name]), name)
+    port_cls = port_class(name)
+    names = [f.name for f in dataclasses.fields(jax_cls)]
+    assert names == [f.name for f in dataclasses.fields(port_cls)]
+    jax_obj, port_obj = jax_cls(), port_cls()
+    for f in names:
+        a, b = getattr(jax_obj, f), getattr(port_obj, f)
+        if f == "dtype":
+            assert torch_dtype(a) == b
+        else:
+            _same_defaults(a, b, f"{name}.{f}")

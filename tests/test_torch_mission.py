@@ -12,9 +12,11 @@ the CPU: the JAX program vmapped over the fleet, the port batched.
   last-bit differences, so the pushes are compared on outcome, not
   iterate by iterate.
 
-The one unported option (the physics plant) raises instead of being
-ignored; the correction legs and the straight front end have their own
-file, tests/test_torch_corrections.py.
+The contact plant has its own file (tests/test_torch_closed_loop_physics.py),
+as do the correction legs and the straight front end
+(tests/test_torch_corrections.py).  The options still unported, the
+lidar-mapped arrangement mission and its `MappedPlanManager`, raise
+NotImplementedError naming world/lidar.py instead of being ignored.
 """
 import jax
 import jax.numpy as jnp
@@ -137,14 +139,22 @@ def test_painted_esdf_matches():
                                atol=1e-6)
 
 
-@pytest.mark.parametrize("change", [dict(plant="physics")],
-                         ids=["change1"])    # the id this case always had
-def test_unported_options_raise(change):
-    _, e_t = _esdfs()
-    cfg = tmf.MissionFleetConfig(**change)
-    with pytest.raises(NotImplementedError):
-        tmf.run_mission(ITEMS, TARGETS, ROBOT0, e_t, TICR(*ICR), cfg,
-                        device="cpu")
+@pytest.mark.parametrize("option", ["mapped_mission", "mapped_plan_manager"])
+def test_unported_options_raise(option):
+    from alore_legged_manipulator_tpu_torch.mission.plan_manager import (
+        MappedPlanManager)
+    from alore_legged_manipulator_tpu_torch.runtime.arrangement import (
+        ArrangementMission)
+    occ = np.zeros((40, 40), bool)
+    with pytest.raises(NotImplementedError, match="world/lidar.py"):
+        if option == "mapped_mission":
+            ArrangementMission(occ=occ, lower=(0.0, 0.0), res=0.1,
+                               items=[(1.0, 1.0, 0.0)],
+                               targets=[(3.0, 3.0, 0.0)], mapped=True,
+                               device="cpu").run((0.5, 0.5, 0.0))
+        else:
+            MappedPlanManager(occ=occ, lower=(0.0, 0.0), res=0.1,
+                              device="cpu")
 
 
 def test_default_device_is_the_card(monkeypatch):
