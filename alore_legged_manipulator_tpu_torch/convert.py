@@ -7,8 +7,10 @@ same name, field by field: arrays become tensors (shape and dtype kept),
 nested tuples and configs are converted recursively, plain numbers stay
 as they are.  The dataclass configs (`PlanManagerConfig`, `FsmConfig`)
 are carried the same way, their dtype fields (`jnp.float32`, ...) mapped
-to the torch dtype of the same name.  The port's class is found by the
-JAX class's name, so this module imports nothing of the JAX package.
+to the torch dtype of the same name.  A host dataclass (`E2EScenario`,
+whose grid stays a numpy array on the host) is copied field by field.
+The port's class is found by the JAX class's name, so this module
+imports nothing of the JAX package.
 
 The leading lane axis is the caller's business: convert a vmapped pytree
 as it is, or add the axis before converting.
@@ -57,6 +59,11 @@ _CLASSES = {
     "PhysicsLoopConfig": "runtime.closed_loop_physics",
     "PhysicsTrackingResult": "runtime.closed_loop_physics",
     "FrontendConfig": "planner.frontend",
+    "LtvMpcConfig": "control.ltv_mpc",
+    "LtvMpcCarry": "control.ltv_mpc",
+    "LidarConfig": "world.lidar",
+    "OccupancyConfig": "world.lidar",
+    "OccupancyState": "world.lidar",
 }
 
 # dataclass configs: class name -> module of the port that defines it
@@ -65,11 +72,17 @@ DATACLASSES = {
     "FsmConfig": "mission.object_fsm",
 }
 
+# host dataclasses, copied as they are: class name -> module of the port
+HOST_DATACLASSES = {
+    "E2EScenario": "runtime.planner_sim",
+}
+
 
 def port_class(name: str):
     """The port's class for a JAX class name."""
-    mod = importlib.import_module(
-        f"{__package__}.{_CLASSES.get(name) or DATACLASSES[name]}")
+    where = _CLASSES.get(name) or DATACLASSES.get(name) \
+        or HOST_DATACLASSES[name]
+    mod = importlib.import_module(f"{__package__}.{where}")
     return getattr(mod, name)
 
 
@@ -94,6 +107,10 @@ def from_jax_numpy(obj, device=None):
         return cls(*(from_jax_numpy(v, device) for v in obj))
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         name = type(obj).__name__
+        if name in HOST_DATACLASSES:
+            return port_class(name)(**{
+                f.name: getattr(obj, f.name)
+                for f in dataclasses.fields(obj)})
         if name not in DATACLASSES:
             raise TypeError(f"no port counterpart for {name}")
         cls = port_class(name)

@@ -36,6 +36,10 @@ from ..planner.flat_traj import Polynome
 from ..planner.frontend import FrontendConfig, plan_frontend
 from ..utils.precision import resolve_device, set_precision_policy
 from ..world.grid_map import paint_rect
+from ..world.lidar import (LidarConfig, OccupancyConfig, lidar_scan,
+                           occupancy_classes, occupancy_init,
+                           occupancy_update, occupancy_update_perspective,
+                           perspective_points)
 
 
 class PlanState(enum.Enum):
@@ -267,12 +271,75 @@ class PlanManager:
         return new_msg
 
 
+@dataclass
 class MappedPlanManager(PlanManager):
-    """Unknown-environment variant (the planning map built online from
-    lidar scans).  It needs world/lidar.py's occupancy fusion, which the
-    port does not have yet."""
+    """Unknown-environment variant: the planning ESDF comes from online
+    lidar mapping instead of ground truth (the reference's *_unknown
+    profile: planner_sim.launch wires laser_sim -> SDFmap raycast ->
+    updateESDF2d inside the detection range).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "MappedPlanManager needs world/lidar.py (lidar scans and "
-            "occupancy fusion), which is not ported yet")
+    `occ` is reinterpreted as the GROUND-TRUTH world used only to render
+    scans; planning sees the fused occupancy (unknown treated as free,
+    matching the known-map "3ms" planner behaviour outside sensor range).
+    The truth grid and the map state live on the manager's device; the
+    fused occupancy comes back to the host as the planning `occ`.
+
+    map_mode selects the reference's two mapping pipelines
+    (planner_sim.launch:22 defaults to if_perspective=true):
+      * "raycast": occlusion-aware scan -> Bresenham log-odds fusion
+        (+ optional circular-support carve, cir_sup=True firing on
+        every SECOND scan exactly like the reference's static counter);
+      * "perspective": perspectivePoints cloud -> window-fill +
+        endpoint-stamp branch (no log odds).
+    """
+
+    lidar_cfg: object = None
+    occupancy_cfg: object = None
+    map_mode: str = "raycast"
+    cir_sup: bool = False            # if_cirSupRaycast (launch:76)
+    _scan_count: int = 0
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        set_precision_policy()
+        self.lidar_cfg = self.lidar_cfg or LidarConfig()
+        self.occupancy_cfg = self.occupancy_cfg or OccupancyConfig()
+        self._true_occ = torch.as_tensor(np.asarray(self.occ, bool),
+                                         device=self.device)
+        self._map_state = occupancy_init(self.occ.shape, self.occupancy_cfg,
+                                         device=self.device)
+        # start with an empty (all-unknown -> free) planning map
+        self.occ = np.zeros_like(self.occ)
+        self.update_esdf()
+
+    def sense(self, pose, n_scans: int = 1):
+        """Render scan(s) of the true world from `pose` and fuse them."""
+        p = torch.tensor(np.asarray(pose, float), dtype=self.cfg.dtype,
+                         device=self.device)
+        for _ in range(n_scans):
+            self._scan_count += 1
+            if self.map_mode == "perspective":
+                pts_s, mask = perspective_points(
+                    self._true_occ, self.lower, self.res, p, self.lidar_cfg)
+                # sensor frame -> world (the bridge republishes world
+                # clouds to the SDFmap node)
+                c, s = torch.cos(p[2]), torch.sin(p[2])
+                px = p[0] + c * pts_s[..., 0] - s * pts_s[..., 1]
+                py = p[1] + s * pts_s[..., 0] + c * pts_s[..., 1]
+                pts_w = torch.stack([px.reshape(-1), py.reshape(-1)], -1)
+                self._map_state = occupancy_update_perspective(
+                    self._map_state, self.lower, self.res, p, pts_w,
+                    mask.reshape(-1), self.lidar_cfg.max_range,
+                    self.occupancy_cfg)
+            else:
+                ranges, hits = lidar_scan(self._true_occ, self.lower,
+                                          self.res, p, self.lidar_cfg)
+                fire = self.cir_sup and (self._scan_count % 2 == 0)
+                self._map_state = occupancy_update(
+                    self._map_state, self.lower, self.res, p, ranges,
+                    hits, self.lidar_cfg, self.occupancy_cfg,
+                    cir_sup=fire)
+        occ_est, _, _ = occupancy_classes(self._map_state,
+                                          self.occupancy_cfg)
+        self.occ = occ_est.cpu().numpy()
+        self.update_esdf()

@@ -10,10 +10,12 @@
   solve for the free variables and a line search over 8 halvings.
 * box_qp_admm: OSQP-style splitting with one Cholesky factorization of
   H + rho*I.
+* qp_admm_general: OSQP-style dense ADMM for general constraints
+  lb <= A z <= ub (the LTV-MPC's solver).
 
 All run a fixed number of iterations and can be warm started (z0).
-Every tensor has a leading lane axis: g, lb, ub, diag_h (B, n) and
-H (B, n, n).
+Every tensor has a leading lane axis: g, lb, ub, diag_h (B, n),
+H (B, n, n) and A (B, m, n).
 """
 from __future__ import annotations
 
@@ -147,3 +149,38 @@ def box_qp_pncg_op(matvec, diag_h, g, lb, ub, z0=None, iters: int = 6,
         z_best = zt[lanes, best]
         z = torch.where((dfs[lanes, best] < 0.0)[:, None], z_best, z)
     return z
+
+
+def qp_admm_general(H, g, A, lb, ub, z0=None, rho: float = 0.4,
+                    sigma: float = 1e-6, alpha: float = 1.6,
+                    iters: int = 200):
+    """OSQP-style dense ADMM:  min 0.5 x'Hx + g'x  s.t. lb <= A x <= ub.
+
+    The operator splitting of OSQP (the reference LTV-MPC's solver,
+    mpc_controller/src/mpc.cpp:494-532) with one dense Cholesky of the
+    reduced KKT matrix H + sigma*I + A' diag(rho) A, then `iters` relaxed
+    steps of two triangular solves each.  Equality rows (lb == ub) get
+    rho * 1e3, as OSQP scales them.  H (B, n, n), g (B, n), A (B, m, n),
+    lb/ub (B, m).  Returns (x, y): primal solution and constraint dual.
+    """
+    n = g.shape[-1]
+    x = torch.zeros_like(g) if z0 is None else z0
+    z = torch.minimum(torch.maximum(_hmv(A, x), lb), ub)
+    y = torch.zeros_like(lb)
+    rho_vec = torch.where(torch.abs(ub - lb) < 1e-12,
+                          torch.full_like(lb, rho * 1e3),
+                          torch.full_like(lb, rho))
+    At = A.transpose(1, 2)
+    K = (H + sigma * torch.eye(n, dtype=g.dtype, device=g.device)
+         + torch.matmul(At * rho_vec[:, None, :], A))
+    L = torch.linalg.cholesky(K)
+    for _ in range(iters):
+        rhs = sigma * x - g + _hmv(At, rho_vec * z - y)
+        xt = torch.cholesky_solve(rhs[..., None], L)[..., 0]
+        zt = _hmv(A, xt)
+        x = alpha * xt + (1.0 - alpha) * x
+        z_relaxed = alpha * zt + (1.0 - alpha) * z
+        z_new = torch.minimum(torch.maximum(z_relaxed + y / rho_vec, lb), ub)
+        y = y + rho_vec * (z_relaxed - z_new)
+        z = z_new
+    return x, y

@@ -11,9 +11,11 @@ The approach runs the FSM's kinematic P-controllers on the host; the
 push runs the planning/control stack on the mission's device
 (`device=None` means the card): the kinematic ICR plant
 (`simulate_tracking`) or the rigid-body contact plant
-(`simulate_tracking_physics`), each on a lane axis of 1.  The
-unknown-environment mode (`mapped=True`) needs world/lidar.py, which is
-not ported yet, and raises NotImplementedError.
+(`simulate_tracking_physics`), each on a lane axis of 1.  In the
+unknown-environment mode (`mapped=True`) the planning map starts empty
+and `MappedPlanManager` builds it from lidar scans of the true world
+while the robot moves; a discovered obstacle across the approach path
+sends the task FSM back to plan a new one.
 """
 from __future__ import annotations
 
@@ -21,11 +23,14 @@ from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from ..core.dynamics import ICRParams
 from ..mission.object_fsm import FsmConfig, FsmState, ObjectFsm
 from ..mission.ordering import greedy_order, pairwise_path_costs
-from ..mission.plan_manager import PlanManager, PlanManagerConfig, PlanState
+from ..mission.plan_manager import (MappedPlanManager, PlanManager,
+                                    PlanManagerConfig, PlanState)
+from ..ops.esdf import sample_dist_bilinear
 from ..planner.frontend import jps_search, world_to_grid
 from .closed_loop import LoopConfig, simulate_tracking
 from .closed_loop_physics import PhysicsLoopConfig, simulate_tracking_physics
@@ -61,9 +66,30 @@ class ArrangementMission:
     # the rigid-body contact engine with the EKF identifying the ICR
     use_physics_plant: bool = False
     phys_cfg: object = None      # PhysicsLoopConfig override
-    # unknown-environment mode (lidar-built map): not ported yet
+    # unknown-environment mode: the planning map starts EMPTY and is
+    # built online from lidar scans of the true world (the reference's
+    # *_unknown profile, MappedPlanManager); the robot senses while it
+    # moves and REPLANS its approach when a discovered obstacle blocks
+    # the current path
     mapped: bool = False
+    map_mode: str = "raycast"
+    cir_sup: bool = False
+    lidar_cfg: object = None     # LidarConfig override (sensor range/FOV)
+    sense_every: int = 20        # approach ticks between scans
     device: object = None        # planning/tracking device; None = the card
+
+    def _path_blocked(self, pm, waypoints, clearance=0.2) -> bool:
+        """True if any remaining waypoint (or segment midpoint) is within
+        `clearance` of a mapped obstacle."""
+        pts = [np.asarray(w, float)[:2] for w in waypoints]
+        if len(pts) >= 2:
+            mids = [(pts[i] + pts[i + 1]) / 2 for i in range(len(pts) - 1)]
+            pts = pts + mids
+        if not pts:
+            return False
+        d = sample_dist_bilinear(pm.esdf, torch.tensor(
+            np.stack(pts), dtype=pm.cfg.dtype, device=pm.device)[None])
+        return bool(d.min() < clearance)
 
     def _path_len(self, blocked, a, b):
         cells = jps_search(blocked.astype(np.uint8),
@@ -102,12 +128,20 @@ class ArrangementMission:
     def run(self, robot_start, verbose: bool = False,
             record_tracks: bool = False) -> MissionReport:
         if self.mapped:
-            raise NotImplementedError(
-                "mapped=True needs world/lidar.py (lidar scans and "
-                "occupancy fusion) and MappedPlanManager, which are not "
-                "ported yet")
-        pm = PlanManager(occ=self.occ.copy(), lower=self.lower, res=self.res,
-                         cfg=self.pm_cfg, device=self.device)
+            pm = MappedPlanManager(occ=self.occ.copy(), lower=self.lower,
+                                   res=self.res, cfg=self.pm_cfg,
+                                   device=self.device,
+                                   map_mode=self.map_mode,
+                                   cir_sup=self.cir_sup,
+                                   lidar_cfg=self.lidar_cfg)
+            # initial look-around from the start pose (the reference
+            # robot boots with the lidar running)
+            for yaw in (0.0, 1.57, 3.14, -1.57):
+                pm.sense((robot_start[0], robot_start[1], yaw))
+        else:
+            pm = PlanManager(occ=self.occ.copy(), lower=self.lower,
+                             res=self.res, cfg=self.pm_cfg,
+                             device=self.device)
         n = len(self.items)
 
         # visit order from JPS path costs BEFORE painting (the reference
@@ -157,6 +191,19 @@ class ArrangementMission:
                 t_sim += self.robot_dt
                 if record_tracks and guard % 5 == 0:
                     robot_track.append(robot.copy())
+                if self.mapped and guard % self.sense_every == 0 \
+                        and fsm.state == FsmState.ROBOT_TRACKING:
+                    pm.sense(robot)
+                    # replan-on-discovery: if the remaining approach
+                    # path now crosses a mapped obstacle, go back to
+                    # WAIT_ROBOT_PATH (the reference's REPLAN loop)
+                    if fsm.robot_path is not None and self._path_blocked(
+                            pm, fsm.robot_path[fsm.path_index:]):
+                        fsm.robot_path = None
+                        fsm.state = FsmState.WAIT_ROBOT_PATH
+                        if verbose:
+                            print(f"  t={t_sim:7.2f}s obstacle "
+                                  "discovered -> approach replan")
 
             elif fsm.state == FsmState.WAIT_ROBOT_PATH:
                 # unlock the item area for approach (MapUpdateThread :526-533)
@@ -175,6 +222,10 @@ class ArrangementMission:
                 fsm.set_robot_path(path + [cur_obj[:2]])
 
             elif fsm.state == FsmState.WAIT_OBJECT_PATH:
+                if self.mapped:
+                    # look around before planning the push corridor
+                    for yaw in (0.0, 1.57, 3.14, -1.57):
+                        pm.sense((robot[0], robot[1], yaw))
                 # plan the object push with the planner stack
                 target = fsm.current_target()
                 pm.state = PlanState.IDLE

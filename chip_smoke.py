@@ -37,7 +37,7 @@ since the script started:
    the production fleet's first leg with the push cut to 60 ticks
    (shares, per-tick times and dispatched operations per tick; both
    plants are run a few ticks first), with the ring back end and the
-   same push on the contact plant beside it.  Then the first legs of 4
+   same push on the contact plant beside it.  Then the first legs of 2
    missions, cut like the ring fleet, with plant noise off, on the card
    through the kernel and on the CPU through the plain versions: the
    front end agrees to 1e-9 in f64; on each device the plans reach their
@@ -50,15 +50,31 @@ since the script started:
    `delivered_frac` after the rounds must reach 0.75.  Then 4 lanes
    through 100 `physics_substep`s (servo, grasp weld, contact, a static
    box) in float64 on the card and on the CPU, agreeing to 1e-9.  Then
-   the two-object arrangement mission of tests/test_arrangement.py on the
+   the arrangement mission of tests/test_arrangement.py's scene on the
    contact plant on the card (ordering -> task FSM -> JPS front end ->
-   PlanManager -> push), held to that test's bounds, with host wall time
-   by phase.
-6. Variants on the card at B=64, N=50: the NMPC tick in its dense
+   PlanManager -> push), cut in depth to its first object, held to that
+   test's bounds, with host wall time by phase; then the same object on
+   a map that starts empty and is fused from 3 m lidar scans
+   (`mapped=True`, MappedPlanManager), so that the wall is discovered on
+   the way, held to the mapped test's bounds, sensing timed as its own
+   phase.
+6. The planner simulation (`run_planner_sim`) at the goldens' full width
+   (140x60 corridor, 360 beams to 5 m, LTV horizon 30 with 3 x 150 ADMM
+   passes, NMPC N=50, float32), cut in depth to PS_LTV_T and PS_NMPC_T
+   simulated seconds: the `corridor` golden under the LTV-MPC with
+   perspective fusion, and `nmpc_corridor_raycast` under the NMPC with
+   the host beam scan and raycast fusion.  Each is held to the compiled
+   reference's golden over its prefix (gate attempts at its plan ticks,
+   trajectory starts, FSM edges, the truth-pose band, no pose in an
+   occupied cell), with wall time by phase, per plan and per tick.
+   `planner_probe()` runs both for 0.1 s alone.
+7. Variants on the card at B=64, N=50: the NMPC tick in its dense
    triangular, assoc and seq modes against the matrix-free path, a
    32-piece spline by cyclic reduction against the dense 6N system, and
    the ring, compact and dense solver directions on a batched quadratic.
-7. The `kernels` JSON line, the script's wall time, and as the last line
+8. The `kernels` JSON line (with K1 and K2's launches on each path, 0 on
+   the planner simulation and the mapped mission, whose front end is the
+   host JPS), the script's wall time, and as the last line
    {"ok": true, "device": {...}}.
 
 Fails (non-zero exit, no result line) without a CUDA card or without the
@@ -78,6 +94,9 @@ import torch
 # shared memory: 132 SMs x 128 B/clock x 1.98 GHz
 SMEM_BYTES_PER_S = 132 * 128 * 1.98e9
 T_START = time.perf_counter()
+# simulated seconds of the two planner-simulation phases (depth cut)
+PS_LTV_T = 0.5
+PS_NMPC_T = 0.5
 
 
 def _phase(name):
@@ -372,7 +391,7 @@ def small_fleet(dev, items, targets, robot0, occ, cfg, icr):
 
 
 def small_fleet_card_vs_cpu(items32, targets32, robot0, occ, cfg, icr):
-    """The first legs of 4 of the production missions (unpainted map, cut
+    """The first legs of 2 of the production missions (unpainted map, cut
     to 300/200 ticks, plant noise off) on the card through the kernel and
     on the CPU through the plain versions.  The front end agrees to 1e-9
     in f64 (only libm rounding differs).  The f32 back ends settle on
@@ -380,7 +399,7 @@ def small_fleet_card_vs_cpu(items32, targets32, robot0, occ, cfg, icr):
     so a 2 s push ends at another point of its path: each device's plans
     must reach their goals and its pushes follow them, and the card's
     objects advance at the CPU's pace."""
-    Bs = 4
+    Bs = 2
     loop = cfg.loop._replace(plant=cfg.loop.plant._replace(add_noise=False))
     cfg_s = cfg._replace(approach_ticks=300, push_ticks=200, loop=loop)
     args = (items32[:Bs, :1], targets32[:Bs, :1], robot0[:Bs], occ, cfg_s,
@@ -528,41 +547,73 @@ def physics_card_vs_cpu():
     return err
 
 
-def arrangement_on_card():
-    """The two-object arrangement mission (tests/test_arrangement.py's
-    scene) on the contact plant, on the card, with host wall time by
-    phase.  Returns the report's summary."""
-    from alore_legged_manipulator_tpu_torch.mission import plan_manager as pm
-    from alore_legged_manipulator_tpu_torch.runtime import arrangement as arr
-    occ = np.zeros((100, 100), bool)
-    occ[48:52, 20:45] = True
-    mission = arr.ArrangementMission(
-        occ=occ, lower=(0.0, 0.0), res=0.1,
-        items=[(2.5, 2.5, 0.0), (2.5, 7.5, 0.0)],
-        targets=[(8.0, 7.5, 0.0), (8.0, 6.0, 0.0)], use_physics_plant=True)
-    phases = {}
-    originals = []
+class PhaseClock:
+    """Host wall time by phase of the functions it wraps, each call ended
+    by a synchronize.  A wrapped call made inside another is billed to
+    its own phase only, so the phases add up to their wall time."""
 
-    def time_in(module, name, bucket):
-        fn = getattr(module, name)
-        originals.append((module, name, fn))
+    def __init__(self):
+        self.phases, self.calls = {}, {}
+        self._stack, self._orig = [], []
+
+    def wrap(self, owner, name, bucket):
+        fn = getattr(owner, name)
+        self._orig.append((owner, name, fn))
 
         def wrapped(*a, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            phases[bucket] = phases.get(bucket, 0.0) \
-                + time.perf_counter() - t0
-            return out
-        setattr(module, name, wrapped)
+            self._stack.append(0.0)
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                inner = self._stack.pop()
+                total = time.perf_counter() - t0
+                self.phases[bucket] = self.phases.get(bucket, 0.0) \
+                    + total - inner
+                self.calls[bucket] = self.calls.get(bucket, 0) + 1
+                if self._stack:
+                    self._stack[-1] += total
+        setattr(owner, name, wrapped)
 
-    time_in(arr, "jps_search", "ordering_and_approach_jps")
-    time_in(pm, "plan_frontend", "front_end")
-    time_in(pm, "esdf_from_occupancy", "esdf_updates")
-    time_in(pm, "plan_backend", "back_end")
-    time_in(pm, "build_tracked_traj", "tracked_traj")
-    time_in(arr, "simulate_tracking_physics", "tracking")
+    def restore(self):
+        for owner, name, fn in reversed(self._orig):
+            setattr(owner, name, fn)
+        self._orig = []
+
+    def report(self, wall):
+        """Phases with the rest of the wall time as `other_host`."""
+        return {**self.phases, "other_host": wall - sum(self.phases.values())}
+
+
+def arrangement_on_card(wfc, mapped):
+    """The arrangement mission of tests/test_arrangement.py's scene on
+    the contact plant, on the card, cut to its first object: item (2.5,
+    2.5) to target (8, 7.5) past the wall occ[48:52, 20:45].  With
+    `mapped` the planning map starts empty and is fused from 3 m lidar
+    scans (MappedPlanManager, raycast), so the wall is found on the way.
+    Host wall time by phase, sensing its own.  Returns (summary, K1/K2
+    launches)."""
+    from alore_legged_manipulator_tpu_torch.mission import plan_manager as pm
+    from alore_legged_manipulator_tpu_torch.runtime import arrangement as arr
+    from alore_legged_manipulator_tpu_torch.world.lidar import LidarConfig
+    occ = np.zeros((100, 100), bool)
+    occ[48:52, 20:45] = True
+    kw = dict(mapped=True, lidar_cfg=LidarConfig(max_range=3.0)) \
+        if mapped else {}
+    mission = arr.ArrangementMission(
+        occ=occ, lower=(0.0, 0.0), res=0.1, items=[(2.5, 2.5, 0.0)],
+        targets=[(8.0, 7.5, 0.0)], use_physics_plant=True, **kw)
+    clock = PhaseClock()
+    clock.wrap(arr, "jps_search", "ordering_and_approach_jps")
+    clock.wrap(pm, "plan_frontend", "front_end")
+    clock.wrap(pm, "esdf_from_occupancy", "esdf_updates")
+    clock.wrap(pm, "plan_backend", "back_end")
+    clock.wrap(pm, "build_tracked_traj", "tracked_traj")
+    clock.wrap(arr, "simulate_tracking_physics", "tracking")
+    clock.wrap(pm.MappedPlanManager, "sense", "sensing")
+    wfc.reset_launches()
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -570,21 +621,161 @@ def arrangement_on_card():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        for module, name, fn in originals:
-            setattr(module, name, fn)
-    phases["other_host"] = wall - sum(phases.values())
-    summary = {"order": rep.order, "delivered": rep.delivered,
+        clock.restore()
+    launches = dict(wfc.LAUNCHES)
+    summary = {"mapped": mapped, "order": rep.order,
+               "delivered": rep.delivered,
                "final_object_err": rep.final_object_err,
                "push_tracking_err_p95": rep.push_tracking_err_p95,
                "sim_time_s": rep.sim_time_s, "wall_s": wall,
-               "wall_by_phase_s": phases}
-    print("arrangement mission, 2 objects, contact plant, on the card: "
+               "wall_by_phase_s": clock.report(wall),
+               "scans": clock.calls.get("sensing", 0),
+               "kernel_launches": launches}
+    print(f"arrangement mission, first object, contact plant, "
+          f"{'lidar-mapped' if mapped else 'known'} map, on the card: "
           + json.dumps(summary), flush=True)
     assert all(rep.delivered), rep
     assert max(rep.final_object_err) < 0.15, rep.final_object_err
-    assert rep.push_tracking_err_p95 < 0.25, rep.push_tracking_err_p95
-    assert len(rep.order) == 2
-    return summary
+    assert len(rep.order) == 1
+    if mapped:
+        assert summary["scans"] > 8, summary["scans"]
+    else:
+        assert rep.push_tracking_err_p95 < 0.25, rep.push_tracking_err_p95
+    return summary, launches
+
+
+GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "golden", "e2e_oracle", "goldens")
+# oracle StateMachine (plan_manager.hpp:26) -> PlanState name
+STATE_NAMES = {1: "IDLE", 2: "PLANNING", 3: "REPLAN", 4: "GOING_TO_GOAL",
+               5: "EMERGENCY_STOP"}
+
+
+def _matched_ticks(golden_t, ticks, atol=1e-9):
+    """How many golden plan ticks have a plan tick within atol."""
+    return sum(1 for g in golden_t
+               if any(abs(t - g) <= atol for t in ticks))
+
+
+def planner_sim_on_card(wfc, golden_name, sim_T, tracker, pose_band):
+    """run_planner_sim on the card at the goldens' full width (140x60
+    corridor, 360 beams to 5 m, LTV horizon 30 with 3 x 150 ADMM passes
+    or NMPC N=50, float32), cut to `sim_T`, with the configuration
+    tests/test_e2e_parity.py builds (defaults, standard_diff back end,
+    piece buckets (4, 8, 16, 24)).  Held to the compiled reference's
+    golden over the prefix: the 1 kHz gate attempts at the golden's plan
+    ticks (1e-9), at most 3 of them failing to plan, each trajectory
+    starting at its tick (the first) or max_replan_time after it (1e-6:
+    a float32 Polynome field), the FSM edges, the truth-pose deviation
+    inside `pose_band` (mean, max), and no pose in an occupied cell.
+    Wall time by phase, per plan and per tracker tick.  Returns (summary,
+    K1/K2 launches)."""
+    import gzip
+    from alore_legged_manipulator_tpu_torch.mission import plan_manager as pmm
+    from alore_legged_manipulator_tpu_torch.planner.backend import (
+        BackendConfig)
+    from alore_legged_manipulator_tpu_torch.planner.frontend import (
+        FrontendConfig)
+    from alore_legged_manipulator_tpu_torch.runtime import planner_sim as ps
+    with gzip.open(os.path.join(GOLDENS, f"{golden_name}.json.gz"),
+                   "rt") as f:
+        golden = json.load(f)
+    scn = ps.E2EScenario.from_golden(golden["scenario"])
+    scn.sim_T = sim_T
+    cfg = pmm.PlanManagerConfig(
+        replan_period=scn.replan_time, max_replan_time=scn.max_replan_time,
+        backend=BackendConfig(standard_diff=True),
+        frontend=FrontendConfig(piece_buckets=(4, 8, 16, 24)))
+    clock = PhaseClock()
+    for owner, name, bucket in (
+            (pmm, "plan_frontend", "front_end"),
+            (pmm, "plan_backend", "back_end"),
+            (pmm, "esdf_from_occupancy", "esdf_updates"),
+            (pmm, "build_tracked_traj", "tracked_traj"),
+            (ps, "build_tracked_traj", "tracked_traj"),
+            (ps, "ltv_mpc_tick", "tracker_tick"),
+            (ps, "nmpc_rti_step", "tracker_tick"),
+            (ps, "nmpc_cold_start_step", "tracker_tick"),
+            (ps, "ltv_ref_points", "tracker_refs"),
+            (ps, "ref_points", "tracker_refs"),
+            (ps, "occupancy_update", "fusion"),
+            (ps, "occupancy_update_perspective", "fusion"),
+            (ps, "ekf_predict", "ekf"), (ps, "ekf_update", "ekf")):
+        clock.wrap(owner, name, bucket)
+    wfc.reset_launches()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trace = ps.run_planner_sim(scn, cfg, ps.LtvMpcConfig(),
+                                   tracker=tracker)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        clock.restore()
+    launches = dict(wfc.LAUNCHES)
+
+    g_t = [p["t"] for p in golden["plans"] if p["t"] <= sim_T]
+    t_t = [p["t"] for p in trace.plans]
+    offs = [p["traj_start"] - p["t"] for p in trace.plans]
+    g_edges = [(t, STATE_NAMES[s]) for t, s in golden["states"]
+               if s in STATE_NAMES and t <= sim_T]
+    t_edges = [(t, s.name) for t, s in trace.states]
+    gp = np.array(golden["poses"])[:len(trace.poses)]
+    dev = np.hypot(trace.poses[:, 1] - gp[:, 1], trace.poses[:, 2] - gp[:, 2])
+    P = trace.poses
+    ix = ((P[:, 1] - scn.lower[0]) / scn.res).astype(int).clip(
+        0, scn.grid.shape[0] - 1)
+    iy = ((P[:, 2] - scn.lower[1]) / scn.res).astype(int).clip(
+        0, scn.grid.shape[1] - 1)
+    phases = clock.report(wall)
+    summary = {
+        "golden": golden_name, "tracker": tracker,
+        "laser_mode": scn.laser_mode, "sim_T": sim_T, "wall_s": wall,
+        "attempts": len(trace.attempts), "plans": len(trace.plans),
+        "golden_plans": len(g_t),
+        "plans_matched": _matched_ticks(g_t, t_t),
+        "pose_dev_mean_m": float(dev.mean()),
+        "pose_dev_max_m": float(dev.max()),
+        "commands": len(trace.cmds),
+        "s_per_plan": phases.get("back_end", 0.0)
+        / max(clock.calls.get("back_end", 1), 1),
+        "s_per_tracker_tick": phases.get("tracker_tick", 0.0)
+        / max(clock.calls.get("tracker_tick", 1), 1),
+        "calls": clock.calls, "wall_by_phase_s": phases,
+        "kernel_launches": launches}
+    print(f"planner simulation, {golden_name}, {tracker}, on the card: "
+          + json.dumps(summary), flush=True)
+    assert len(trace.attempts) == len(g_t) and all(
+        abs(a - g) <= 1e-9 for a, g in zip(trace.attempts, g_t)), \
+        (trace.attempts, g_t)
+    assert summary["plans_matched"] >= len(g_t) - 3, (t_t, g_t)
+    assert abs(offs[0]) < 1e-6 and all(
+        abs(o - scn.max_replan_time) < 1e-6 for o in offs[1:]), offs
+    assert [s for _, s in t_edges] == [s for _, s in g_edges], \
+        (t_edges, g_edges)
+    assert all(abs(a[0] - b[0]) <= 1e-6 for a, b in zip(t_edges, g_edges))
+    assert dev.mean() < pose_band[0] and dev.max() < pose_band[1], dev
+    assert not scn.grid[ix, iy].any(), "a pose entered an occupied cell"
+    for a in (trace.poses, trace.cmds, trace.ekf):
+        assert np.isfinite(a).all()
+    return summary, launches
+
+
+def planner_probe():
+    """One B=1 plan or two and a few ticks of each tracker on the card:
+    the corridor under the LTV-MPC and the raycast corridor under the
+    NMPC, each cut to 0.1 s (two plans, nine tracker ticks)."""
+    from alore_legged_manipulator_tpu_torch.ops import wavefront_cuda as wfc
+    from alore_legged_manipulator_tpu_torch.utils.precision import (
+        set_precision_policy)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+    set_precision_policy()
+    planner_sim_on_card(wfc, "corridor", 0.1, "ltv", (0.15, 0.45))
+    planner_sim_on_card(wfc, "nmpc_corridor_raycast", 0.1, "nmpc",
+                        (0.2, 1.0))
 
 
 def variants_on_card():
@@ -866,14 +1057,24 @@ def main() -> int:
     launches_phys, _ = physics_fleet(mf, wfc, esdf, icr, cfg.backend)
     _phase("contact plant: card vs CPU")
     physics_card_vs_cpu()
-    _phase("arrangement mission on the card, contact plant")
-    arrangement_on_card()
+    _phase("arrangement mission on the card, contact plant, first object")
+    arrangement_on_card(wfc, mapped=False)
+    _phase("lidar-mapped arrangement mission on the card, contact plant")
+    _, launches_mapped = arrangement_on_card(wfc, mapped=True)
 
-    # ---- 6. variants on the card ----
+    # ---- 6. the planner simulation ----
+    _phase("planner simulation, LTV-MPC, corridor (perspective)")
+    _, launches_ps_ltv = planner_sim_on_card(wfc, "corridor", PS_LTV_T, "ltv",
+                                             (0.15, 0.45))
+    _phase("planner simulation, NMPC, corridor (raycast)")
+    _, launches_ps_nmpc = planner_sim_on_card(
+        wfc, "nmpc_corridor_raycast", PS_NMPC_T, "nmpc", (0.2, 1.0))
+
+    # ---- 7. variants on the card ----
     _phase("variants on the card")
     variants_on_card()
 
-    # ---- 7. result lines ----
+    # ---- 8. result lines ----
     kern = []
     for name, replaces in (
             ("wavefront_packed",
@@ -887,6 +1088,9 @@ def main() -> int:
             replaces=replaces, launches=launches[name],
             launches_ring_fleet=launches_ring[name],
             launches_physics_fleet=launches_phys[name],
+            launches_mapped_arrangement=launches_mapped[name],
+            launches_planner_sim_ltv=launches_ps_ltv[name],
+            launches_planner_sim_nmpc=launches_ps_nmpc[name],
             max_abs_err=max(m["max_abs_err"], m100[name]["max_abs_err"],
                             m64[name]["max_abs_err"]),
             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],

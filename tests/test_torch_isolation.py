@@ -7,7 +7,9 @@ its configs keep the JAX package's field names and defaults.
 * Every config NamedTuple the port shares with the JAX package has the
   same fields with equal defaults (nested configs compared field by
   field), and so do the dataclass configs (`PlanManagerConfig`,
-  `FsmConfig`), whose dtype field names the same dtype.
+  `FsmConfig`), whose dtype field names the same dtype, and the host
+  dataclasses (`E2EScenario`: the same fields, the same defaults where
+  there are any).
 """
 import ast
 import dataclasses
@@ -20,8 +22,10 @@ from pathlib import Path
 import pytest
 
 import alore_legged_manipulator_tpu_torch as port_pkg
-from alore_legged_manipulator_tpu_torch.convert import (DATACLASSES, _CLASSES,
-                                                      port_class, torch_dtype)
+from alore_legged_manipulator_tpu_torch.convert import (DATACLASSES,
+                                                      HOST_DATACLASSES,
+                                                      _CLASSES, port_class,
+                                                      torch_dtype)
 
 ROOT = Path(port_pkg.__file__).resolve().parent
 REPO = ROOT.parent
@@ -43,7 +47,9 @@ def test_module_list_covers_the_slice():
               "world.physics2d", "runtime.closed_loop_physics",
               "world.grid_map", "native", "planner.frontend",
               "mission.ordering", "mission.object_fsm",
-              "mission.plan_manager", "runtime.arrangement"):
+              "mission.plan_manager", "runtime.arrangement",
+              "control.ltv_mpc", "world.lidar", "config", "config.profiles",
+              "runtime.planner_sim"):
         assert f"{port_pkg.__name__}.{m}" in mods
 
 
@@ -63,6 +69,22 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
 
+
+
+def test_importing_the_port_needs_no_yaml():
+    """PyYAML is imported only inside config.profiles.load_profile."""
+    mods = _port_modules()
+    code = ("import importlib, sys\n"
+            "sys.modules['yaml'] = None\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print('OK')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(REPO), timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "OK" in out.stdout
 
 def _imports(path):
     tree = ast.parse(path.read_text())
@@ -137,3 +159,15 @@ def test_dataclass_config_defaults_match(name):
             assert torch_dtype(a) == b
         else:
             _same_defaults(a, b, f"{name}.{f}")
+
+
+@pytest.mark.parametrize("name", sorted(HOST_DATACLASSES))
+def test_host_dataclass_fields_match(name):
+    import importlib
+    jax_cls = getattr(importlib.import_module(
+        "alore_legged_manipulator_tpu." + HOST_DATACLASSES[name]), name)
+    jf = dataclasses.fields(jax_cls)
+    tf = dataclasses.fields(port_class(name))
+    assert [f.name for f in jf] == [f.name for f in tf]
+    for a, b in zip(jf, tf):
+        assert a.default == b.default, a.name

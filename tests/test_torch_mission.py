@@ -14,9 +14,15 @@ the CPU: the JAX program vmapped over the fleet, the port batched.
 
 The contact plant has its own file (tests/test_torch_closed_loop_physics.py),
 as do the correction legs and the straight front end
-(tests/test_torch_corrections.py).  The options still unported, the
-lidar-mapped arrangement mission and its `MappedPlanManager`, raise
-NotImplementedError naming world/lidar.py instead of being ignored.
+(tests/test_torch_corrections.py).
+
+`MappedPlanManager` in both map modes (perspective; raycast with the
+circular-support carve) against JAX, as tests/test_mission.py holds
+JAX: float64, the wall south of the robot found in both; after each
+scan the planning occupancy and the gridmap are equal cell for cell,
+the log odds agree to 1e-12, and the planning ESDF to 1e-6 (float32
+fields).  An unseen wall then forces a replan around it from the
+fused map on both sides, with the same front-end input.
 """
 import jax
 import jax.numpy as jnp
@@ -139,22 +145,124 @@ def test_painted_esdf_matches():
                                atol=1e-6)
 
 
-@pytest.mark.parametrize("option", ["mapped_mission", "mapped_plan_manager"])
-def test_unported_options_raise(option):
-    from alore_legged_manipulator_tpu_torch.mission.plan_manager import (
-        MappedPlanManager)
-    from alore_legged_manipulator_tpu_torch.runtime.arrangement import (
-        ArrangementMission)
-    occ = np.zeros((40, 40), bool)
-    with pytest.raises(NotImplementedError, match="world/lidar.py"):
-        if option == "mapped_mission":
-            ArrangementMission(occ=occ, lower=(0.0, 0.0), res=0.1,
-                               items=[(1.0, 1.0, 0.0)],
-                               targets=[(3.0, 3.0, 0.0)], mapped=True,
-                               device="cpu").run((0.5, 0.5, 0.0))
-        else:
-            MappedPlanManager(occ=occ, lower=(0.0, 0.0), res=0.1,
-                              device="cpu")
+def _mapped_pair(mode, cir_sup, occ, max_range=4.0, **cfg_kw):
+    from alore_legged_manipulator_tpu.mission import plan_manager as jpm
+    from alore_legged_manipulator_tpu.world.lidar import LidarConfig as JLC
+    from alore_legged_manipulator_tpu_torch.convert import from_jax_numpy
+    from alore_legged_manipulator_tpu_torch.mission import plan_manager as tpm
+    from alore_legged_manipulator_tpu_torch.world.lidar import (
+        LidarConfig as TLC)
+    cfg = jpm.PlanManagerConfig(dtype=jnp.float64, **cfg_kw)
+    kw = dict(occ=occ, lower=(0.0, 0.0), res=0.1, map_mode=mode,
+              cir_sup=cir_sup)
+    pj = jpm.MappedPlanManager(cfg=cfg, lidar_cfg=JLC(max_range=max_range),
+                               **kw)
+    pt = tpm.MappedPlanManager(cfg=from_jax_numpy(cfg), device="cpu",
+                               lidar_cfg=TLC(max_range=max_range), **kw)
+    return pj, pt
+
+
+def _same_map(pj, pt):
+    np.testing.assert_array_equal(pt.occ, np.asarray(pj.occ))
+    np.testing.assert_array_equal(pt._map_state.grid.numpy(),
+                                  np.asarray(pj._map_state.grid))
+    np.testing.assert_allclose(pt._map_state.log_odds.numpy(),
+                               np.asarray(pj._map_state.log_odds), rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(pt.esdf.dist.numpy(), np.asarray(pj.esdf.dist),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode,cir_sup", [("perspective", False),
+                                          ("raycast", True)])
+def test_mapped_plan_manager_modes_match_jax(mode, cir_sup):
+    """tests/test_mission.py's discovery case on both sides: both
+    pipelines expose the wall to the planning map after sensing."""
+    from alore_legged_manipulator_tpu_torch.world.lidar import (
+        occupancy_classes)
+    occ = np.zeros((60, 60), bool)
+    occ[10:50, 28:32] = True            # wall at y in [2.8, 3.2)
+    pj, pt = _mapped_pair(mode, cir_sup, occ)
+    assert not pt.occ.any(), "map must start empty"
+    _same_map(pj, pt)
+    for pose in [(3.0, 1.2, 1.57)] * 3 + [(2.0, 1.0, 0.5)]:
+        pj.sense(pose)
+        pt.sense(pose)
+        _same_map(pj, pt)
+    assert pt.occ[25:35, 28].any()
+    _, free, _ = occupancy_classes(pt._map_state, pt.occupancy_cfg)
+    assert bool(free[30, 20])
+    if cir_sup:
+        assert int(free.sum()) > 400
+
+
+def test_mapped_plan_manager_replans_around_discovered_wall():
+    """The first plan goes straight through the unseen wall on both
+    sides; after sensing along the detour both replan around it
+    (tests/test_mission.py's case), from the same front-end input."""
+    from alore_legged_manipulator_tpu.mission import plan_manager as jpm
+    from alore_legged_manipulator_tpu_torch.mission import plan_manager as tpm
+    occ = np.zeros((80, 80), bool)
+    occ[38:44, 20:60] = True
+    pj, pt = _mapped_pair("raycast", False, occ, max_range=10.0,
+                          replan_period=0.5)
+    start, goal = (4.0, 1.0, 1.57), (4.0, 7.0, 1.57)
+    true_esdf = j_esdf_from_occupancy(jnp.asarray(occ), jnp.zeros(2), 0.1)
+    flats = {"jax": [], "port": []}
+    orig = {"jax": jpm.plan_frontend, "port": tpm.plan_frontend}
+
+    def recording(side):
+        def f(*a, **kw):
+            out = orig[side](*a, **kw)
+            flats[side].append(out)
+            return out
+        return f
+    jpm.plan_frontend, tpm.plan_frontend = recording("jax"), recording("port")
+    try:
+        clearance = {}
+        for side, pm in (("jax", pj), ("port", pt)):
+            pm.set_goal(goal)
+            assert pm.tick(0.0, start) is not None
+            blind = _min_true_clearance(pm, start, true_esdf)
+            for pose in [(4.0, 1.5, 1.57), (2.5, 2.5, 0.0), (2.5, 4.0, 0.0),
+                         (2.5, 5.5, 0.0)]:
+                for _ in range(8):
+                    pm.sense(pose)
+            pm.state = jpm.PlanState.IDLE if side == "jax" \
+                else tpm.PlanState.IDLE
+            pm.plan_start_time = -1.0
+            pm.set_goal(goal)
+            assert pm.tick(1.0, start) is not None, pm.state
+            clearance[side] = (blind, _min_true_clearance(pm, start,
+                                                          true_esdf))
+    finally:
+        jpm.plan_frontend, tpm.plan_frontend = orig["jax"], orig["port"]
+    _same_map(pj, pt)
+    for fj, ft in zip(flats["jax"], flats["port"]):
+        for name in fj._fields:
+            np.testing.assert_array_equal(getattr(ft, name).numpy()[0],
+                                          np.asarray(getattr(fj, name)),
+                                          err_msg=name)
+    for side in ("jax", "port"):
+        blind, aware = clearance[side]
+        assert blind < 0.0, (side, blind)
+        assert aware > 0.05, (side, aware)
+
+
+def _min_true_clearance(pm, start, true_esdf):
+    """The smallest true-world distance along the manager's plan."""
+    from alore_legged_manipulator_tpu.core.flow import simpson_flow_positions
+    from alore_legged_manipulator_tpu.ops.esdf import sample_dist_bilinear
+    tt = pm.tracked
+    coeffs = np.asarray(tt.traj.coeffs.numpy()[0] if hasattr(
+        tt.traj.coeffs, "numpy") else tt.traj.coeffs)
+    times = np.asarray(tt.traj.times.numpy()[0] if hasattr(
+        tt.traj.times, "numpy") else tt.traj.times)
+    node_xy, _, _ = simpson_flow_positions(jnp.asarray(coeffs),
+                                           jnp.asarray(times),
+                                           jnp.asarray(start[:2]), 0.2, 8)
+    return float(jnp.min(sample_dist_bilinear(true_esdf,
+                                              node_xy.reshape(-1, 2))))
 
 
 def test_default_device_is_the_card(monkeypatch):
@@ -164,3 +272,8 @@ def test_default_device_is_the_card(monkeypatch):
     _, e_t = _esdfs()
     with pytest.raises(RuntimeError):
         tmf.run_mission(ITEMS, TARGETS, ROBOT0, e_t, TICR(*ICR))
+    from alore_legged_manipulator_tpu_torch.mission.plan_manager import (
+        MappedPlanManager)
+    with pytest.raises(RuntimeError):
+        MappedPlanManager(occ=np.zeros((10, 10), bool), lower=(0.0, 0.0),
+                          res=0.1)
