@@ -13,7 +13,11 @@ The port's class is found by the JAX class's name, so this module
 imports nothing of the JAX package.
 
 The leading lane axis is the caller's business: convert a vmapped pytree
-as it is, or add the axis before converting.
+as it is, or add the axis before converting (`add_lane_axis`).
+
+`state_dict_from_flax` (from `models/torch_convert.py`) carries the JAX
+package's flax parameter trees, as numpy, into the `state_dict`s of the
+port's `PhysicActorCritic`, `Critic` and `ActorCriticLow`.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ import importlib
 
 import numpy as np
 import torch
+
+from .models.torch_convert import state_dict_from_flax  # noqa: F401
 
 # class name -> module of the port that defines it
 _CLASSES = {
@@ -64,6 +70,15 @@ _CLASSES = {
     "LidarConfig": "world.lidar",
     "OccupancyConfig": "world.lidar",
     "OccupancyState": "world.lidar",
+    "GraphBatch": "models.gnn",
+    "LowObsState": "runtime.obs_assembly",
+    "RobotView": "rl.obs_layout",
+    "PushEnvConfig": "rl.env",
+    "PushEnvState": "rl.env",
+    "HierarchyConfig": "rl.hierarchy",
+    "RobotState": "rl.hierarchy",
+    "PhysicsEnvConfig": "rl.env_physics",
+    "PhysPushEnvState": "rl.env_physics",
 }
 
 # dataclass configs: class name -> module of the port that defines it
@@ -75,7 +90,20 @@ DATACLASSES = {
 # host dataclasses, copied as they are: class name -> module of the port
 HOST_DATACLASSES = {
     "E2EScenario": "runtime.planner_sim",
+    "DeployConfig": "runtime.deploy",
 }
+
+
+def add_lane_axis(obj):
+    """Prefix every array leaf of a numpy-leaved pytree with a lane axis
+    of 1 (a single JAX env state -> a one-lane port state)."""
+    if isinstance(obj, (np.ndarray, np.generic)):
+        return np.asarray(obj)[None]
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(add_lane_axis(v) for v in obj))
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(add_lane_axis(v) for v in obj)
+    return obj
 
 
 def port_class(name: str):

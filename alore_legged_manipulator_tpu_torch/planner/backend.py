@@ -276,6 +276,43 @@ def stage2_cost(x, flat: FlatTraj, esdf: ESDF, safe_dis, lam, rho,
     return stage2_cost_aux(x, flat, esdf, safe_dis, lam, rho, cfg)[0]
 
 
+def stage2_cost_breakdown(x, flat: FlatTraj, esdf: ESDF, safe_dis, lam, rho,
+                          cfg: BackendConfig):
+    """Per-term cost decomposition, each term (B,) (the `ifprint` debug
+    output of optimizer.cpp:1040-1051: energy / collision / end-point /
+    acc / domega / moment / centripetal / time).  Diagnostic only -- the
+    hot path uses stage2_cost.  lam, rho: (B, 2); safe_dis: (B,)."""
+    n = flat.num_pieces
+    inner, tail_s, tau = unpack_vars(x, n)
+    coeffs, times = _spline(flat, inner, tail_s, tau)
+    w = cfg.weights
+    ew = torch.tensor(cfg.energy_weights, dtype=x.dtype, device=x.device)
+
+    terms = {}
+    terms["energy"] = minco_energy(coeffs, times, ew)
+    node_xy, final_xy, samples = simpson_flow_positions(
+        coeffs, times, flat.start_xytheta[:, :2], _xv(cfg),
+        cfg.sparse_resolution)
+    terms["acc"] = kinodynamic_penalties(samples, times, cfg, w.acc_weight,
+                                         0.0, 0.0, 0.0)
+    terms["domega"] = kinodynamic_penalties(samples, times, cfg, 0.0,
+                                            w.domega_weight, 0.0, 0.0)
+    terms["moment"] = kinodynamic_penalties(samples, times, cfg, 0.0, 0.0,
+                                            w.moment_weight, 0.0)
+    terms["cen_acc"] = kinodynamic_penalties(samples, times, cfg, 0.0, 0.0,
+                                             0.0, w.cen_acc_weight)
+    terms["collision"] = collision_penalty(node_xy, samples, times, esdf,
+                                           safe_dis, cfg)
+    terms["time"] = w.time_weight * torch.sum(times, dim=-1)
+    h = final_xy - flat.final_xytheta[:, :2]
+    terms["endpoint_alm"] = 0.5 * (
+        rho[:, 0] * (h[:, 0] + lam[:, 0] / rho[:, 0]) ** 2
+        + rho[:, 1] * (h[:, 1] + lam[:, 1] / rho[:, 1]) ** 2)
+    terms["total"] = sum(terms.values())
+    terms["final_xy_error"] = torch.linalg.norm(h, dim=-1)
+    return terms
+
+
 def final_xy_error(x, flat: FlatTraj, cfg: BackendConfig):
     inner, tail_s, tau = unpack_vars(x, flat.num_pieces)
     coeffs, times = _spline(flat, inner, tail_s, tau)

@@ -30,15 +30,15 @@ since the script started:
    round, K2 once.  Lanes delivered before the rounds must come out of
    them bit for bit.
 4. The ring-direction fleet of the first slice, cut in depth to K=1,
-   approach_ticks=300, push_ticks=200 (B=64, no corrections), with its
+   approach_ticks=300, push_ticks=100 (B=64, no corrections), with its
    own launch counts: its plans must reach their goals, its pushes follow
    them, and its objects advance as far as the production fleet's first
    leg does in as many ticks.  Then the host wall time of each phase of
-   the production fleet's first leg with the push cut to 60 ticks
+   the production fleet's first leg with the push cut to 30 ticks
    (shares, per-tick times and dispatched operations per tick; both
    plants are run a few ticks first), with the ring back end and the
    same push on the contact plant beside it.  Then the first legs of 2
-   missions, cut like the ring fleet, with plant noise off, on the card
+   missions, cut to 300/200 ticks, with plant noise off, on the card
    through the kernel and on the CPU through the plain versions: the
    front end agrees to 1e-9 in f64; on each device the plans reach their
    goals and the pushes follow them, and the card's objects advance at
@@ -50,14 +50,16 @@ since the script started:
    `delivered_frac` after the rounds must reach 0.75.  Then 4 lanes
    through 100 `physics_substep`s (servo, grasp weld, contact, a static
    box) in float64 on the card and on the CPU, agreeing to 1e-9.  Then
-   the arrangement mission of tests/test_arrangement.py's scene on the
-   contact plant on the card (ordering -> task FSM -> JPS front end ->
-   PlanManager -> push), cut in depth to its first object, held to that
-   test's bounds, with host wall time by phase; then the same object on
-   a map that starts empty and is fused from 3 m lidar scans
+   the known-map arrangement of tests/test_arrangement.py's scene cut in
+   depth to its push's plan (`PlanManager`, JPS front end, MINCO back
+   end) and the push's first KNOWN_MAP_PUSH_S simulated seconds on the
+   contact plant, held to that test's p95 tracking bound; then the
+   arrangement mission on the contact plant on the card (ordering ->
+   task FSM -> JPS front end -> PlanManager -> push), its first object,
+   on a map that starts empty and is fused from 3 m lidar scans
    (`mapped=True`, MappedPlanManager), so that the wall is discovered on
    the way, held to the mapped test's bounds, sensing timed as its own
-   phase.
+   phase; both with host wall time by phase.
 6. The planner simulation (`run_planner_sim`) at the goldens' full width
    (140x60 corridor, 360 beams to 5 m, LTV horizon 30 with 3 x 150 ADMM
    passes, NMPC N=50, float32), cut in depth to PS_LTV_T and PS_NMPC_T
@@ -72,10 +74,24 @@ since the script started:
    triangular, assoc and seq modes against the matrix-free path, a
    32-piece spline by cyclic reduction against the dense 6N system, and
    the ring, compact and dense solver directions on a batched quadratic.
-8. The `kernels` JSON line (with K1 and K2's launches on each path, 0 on
-   the planner simulation and the mapped mission, whose front end is the
-   host JPS), the script's wall time, and as the last line
-   {"ok": true, "device": {...}}.
+8. The trained high-level pushing policy, served
+   (models/weights/highlevel_physics_6000.npz, the JAX package's
+   6000-iteration contact-plant checkpoint): its mean actions and
+   velocity estimates on 256 contact-plant histories on the card against
+   the CPU (f32, 1e-4), the B=1 forward's p50/p99 latency against the
+   20 ms of a 50 Hz tick and its dispatched operations; the fixed-command
+   tracking eval of examples/train_and_deploy_highlevel.py on the contact
+   plant (256 lanes x 100 steps, held to the JAX package's value + 0.05
+   per axis); the perception -> FSM -> policy bus mission with the
+   policy and the contact plant on the card (DONE within 0.5 m, wall by
+   phase); the frozen low-level WBC with seeded random weights, card
+   against CPU (50 deployment ticks at f32 within 1e-4, 10 contact-plant
+   hierarchy steps at f64 within 1e-9).  `served_probe()` runs these and
+   the known-map push alone.
+9. The `kernels` JSON line (with K1 and K2's launches on each path, 0 on
+   the planner simulation, the mapped mission and the served policy,
+   whose paths hold no wavefront), the script's wall time, and as the
+   last line {"ok": true, "device": {...}}.
 
 Fails (non-zero exit, no result line) without a CUDA card or without the
 package beside it.  Imports nothing of JAX.
@@ -97,6 +113,15 @@ T_START = time.perf_counter()
 # simulated seconds of the two planner-simulation phases (depth cut)
 PS_LTV_T = 0.5
 PS_NMPC_T = 0.5
+# simulated seconds of the known-map arrangement's push (depth cut)
+KNOWN_MAP_PUSH_S = 1.0
+# push ticks of the ring fleet and of the timed first leg (depth cuts)
+RING_PUSH_TICKS = 100
+LEG_PUSH_TICKS = 30
+# the JAX package's fixed-command eval of the trained contact-plant
+# policy, per axis (vx, vy, wz), on the CPU (tests/jax_tracking_eval.py)
+JAX_EVAL_ERR = (0.111050, 0.053142, 0.103891)
+POLICY_BUDGET_MS = 20.0         # one tick of the 50 Hz high-level loop
 
 
 def _phase(name):
@@ -324,12 +349,13 @@ def advance(traj):
 
 def ring_fleet(mf, wf, wfc, items32, targets32, robot0, esdf, icr, field_m,
                prod):
-    """The first slice's ring-direction fleet, cut in depth to K=1 and
-    300/200 ticks, with its own launch counts; `prod` is the production
+    """The first slice's ring-direction fleet, cut in depth to K=1, 300
+    approach and RING_PUSH_TICKS push ticks, with its own launch counts; `prod` is the production
     fleet's result before its rounds.  Returns the launches."""
     _phase("ring fleet B=64 K=1 on the card (no corrections, cut in depth)")
     B = items32.shape[0]
-    cfg_ring = mf.MissionFleetConfig(approach_ticks=300, push_ticks=200)
+    cfg_ring = mf.MissionFleetConfig(approach_ticks=300,
+                                     push_ticks=RING_PUSH_TICKS)
     assert cfg_ring.backend.solver_direction == "ring"
     wfc.reset_launches()
     torch.cuda.synchronize()
@@ -347,7 +373,7 @@ def ring_fleet(mf, wf, wfc, items32, targets32, robot0, esdf, icr, field_m,
     assert torch.equal(field_r, field_m)
     assert_finite(res_ring, (B, 1), cfg_ring.push_ticks)
     ring = fleet_summary(res_ring)
-    # a 2 s push delivers no 4-7 m leg.  Its outcome: how far the objects
+    # a 1 s push delivers no 4-7 m leg.  Its outcome: how far the objects
     # advance, against the production fleet's first leg (same items and
     # targets, its map painted with the other objects) over as many ticks
     n = cfg_ring.push_ticks
@@ -587,24 +613,83 @@ class PhaseClock:
         return {**self.phases, "other_host": wall - sum(self.phases.values())}
 
 
-def arrangement_on_card(wfc, mapped):
+def known_map_push_on_card(wfc, push_s=KNOWN_MAP_PUSH_S):
+    """The known-map arrangement's push on the contact plant, on the
+    card, cut in depth to its plan and the first `push_s` simulated
+    seconds of its push: tests/test_arrangement.py's scene (100x100,
+    wall occ[48:52, 20:45]) with every item painted, the pushed item
+    unlocked, `PlanManager` planning item (2.5, 2.5) to target (8, 7.5)
+    from the robot's heading on arrival (from its start (5, 1)), then
+    `simulate_tracking_physics` for push_s.  Held to that test's p95
+    tracking bound (0.25 m) over the simulated part.  Host wall time by
+    phase.  Returns the summary and K1/K2 launches."""
+    from alore_legged_manipulator_tpu_torch.mission import plan_manager as pm
+    from alore_legged_manipulator_tpu_torch.runtime import (
+        closed_loop_physics as clp)
+    occ = np.zeros((100, 100), bool)
+    occ[48:52, 20:45] = True
+    item, target, start = (2.5, 2.5), (8.0, 7.5, 0.0), (5.0, 1.0)
+    clock = PhaseClock()
+    clock.wrap(pm, "plan_frontend", "front_end")
+    clock.wrap(pm, "esdf_from_occupancy", "esdf_updates")
+    clock.wrap(pm, "plan_backend", "back_end")
+    clock.wrap(pm, "build_tracked_traj", "tracked_traj")
+    clock.wrap(clp, "simulate_tracking_physics", "tracking")
+    wfc.reset_launches()
+    ticks = int(round(push_s / 0.01))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        man = pm.PlanManager(occ=occ.copy(), lower=(0.0, 0.0), res=0.1,
+                             cfg=pm.PlanManagerConfig())
+        man.paint_square(np.asarray(item), half_size=0.25)
+        man.paint_square(np.asarray(item), half_size=0.3, make_obs=False)
+        yaw = float(np.arctan2(item[1] - start[1], item[0] - start[0]))
+        man.set_goal(target)
+        msg = man.tick(0.0, np.array([item[0], item[1], yaw]))
+        assert msg is not None, f"push planning failed: {man.state}"
+        dur = float(man.tracked.duration[0])
+        res = clp.simulate_tracking_physics(man.tracked, ticks,
+                                            clp.PhysicsLoopConfig(), seed=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        clock.restore()
+    launches = dict(wfc.LAUNCHES)
+    perr = res.pos_err[0, :min(ticks, int(dur / 0.01))].cpu().numpy()
+    summary = {"plan_duration_s": dur, "simulated_push_s": push_s,
+               "push_tracking_err_p95": float(np.percentile(perr, 95)),
+               "grasp_gap_max": float(res.grasp_gap.max()),
+               "object_moved_m": float(np.linalg.norm(
+                   res.obj_xytheta[0, -1, :2].cpu().numpy()
+                   - np.asarray(item))),
+               "wall_s": wall, "wall_by_phase_s": clock.report(wall),
+               "kernel_launches": launches}
+    print("known-map arrangement push, contact plant, plan and first "
+          f"{push_s} s, on the card: " + json.dumps(summary), flush=True)
+    assert summary["push_tracking_err_p95"] < 0.25, summary
+    assert summary["object_moved_m"] > 0.1 * push_s, summary
+    assert bool(torch.isfinite(res.obj_xytheta).all())
+    return summary, launches
+
+
+def arrangement_on_card(wfc):
     """The arrangement mission of tests/test_arrangement.py's scene on
     the contact plant, on the card, cut to its first object: item (2.5,
-    2.5) to target (8, 7.5) past the wall occ[48:52, 20:45].  With
-    `mapped` the planning map starts empty and is fused from 3 m lidar
-    scans (MappedPlanManager, raycast), so the wall is found on the way.
-    Host wall time by phase, sensing its own.  Returns (summary, K1/K2
+    2.5) to target (8, 7.5) past the wall occ[48:52, 20:45].  The
+    planning map starts empty and is fused from 3 m lidar scans
+    (MappedPlanManager, raycast), so the wall is found on the way.  Host
+    wall time by phase, sensing its own.  Returns (summary, K1/K2
     launches)."""
     from alore_legged_manipulator_tpu_torch.mission import plan_manager as pm
     from alore_legged_manipulator_tpu_torch.runtime import arrangement as arr
     from alore_legged_manipulator_tpu_torch.world.lidar import LidarConfig
     occ = np.zeros((100, 100), bool)
     occ[48:52, 20:45] = True
-    kw = dict(mapped=True, lidar_cfg=LidarConfig(max_range=3.0)) \
-        if mapped else {}
     mission = arr.ArrangementMission(
         occ=occ, lower=(0.0, 0.0), res=0.1, items=[(2.5, 2.5, 0.0)],
-        targets=[(8.0, 7.5, 0.0)], use_physics_plant=True, **kw)
+        targets=[(8.0, 7.5, 0.0)], use_physics_plant=True, mapped=True,
+        lidar_cfg=LidarConfig(max_range=3.0))
     clock = PhaseClock()
     clock.wrap(arr, "jps_search", "ordering_and_approach_jps")
     clock.wrap(pm, "plan_frontend", "front_end")
@@ -623,7 +708,7 @@ def arrangement_on_card(wfc, mapped):
     finally:
         clock.restore()
     launches = dict(wfc.LAUNCHES)
-    summary = {"mapped": mapped, "order": rep.order,
+    summary = {"mapped": True, "order": rep.order,
                "delivered": rep.delivered,
                "final_object_err": rep.final_object_err,
                "push_tracking_err_p95": rep.push_tracking_err_p95,
@@ -631,16 +716,12 @@ def arrangement_on_card(wfc, mapped):
                "wall_by_phase_s": clock.report(wall),
                "scans": clock.calls.get("sensing", 0),
                "kernel_launches": launches}
-    print(f"arrangement mission, first object, contact plant, "
-          f"{'lidar-mapped' if mapped else 'known'} map, on the card: "
-          + json.dumps(summary), flush=True)
+    print("arrangement mission, first object, contact plant, lidar-mapped "
+          "map, on the card: " + json.dumps(summary), flush=True)
     assert all(rep.delivered), rep
     assert max(rep.final_object_err) < 0.15, rep.final_object_err
     assert len(rep.order) == 1
-    if mapped:
-        assert summary["scans"] > 8, summary["scans"]
-    else:
-        assert rep.push_tracking_err_p95 < 0.25, rep.push_tracking_err_p95
+    assert summary["scans"] > 8, summary["scans"]
     return summary, launches
 
 
@@ -778,6 +859,26 @@ def planner_probe():
                         (0.2, 1.0))
 
 
+def served_probe():
+    """The served policy's phases alone (the policy card vs CPU, the
+    eval, the bus mission, the low-level WBC) and the known-map push
+    cut, about two minutes of command time."""
+    from alore_legged_manipulator_tpu_torch.ops import wavefront_cuda as wfc
+    from alore_legged_manipulator_tpu_torch.utils.precision import (
+        set_precision_policy)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+    set_precision_policy()
+    for name, fn in (("policy", policy_card_vs_cpu),
+                     ("eval", tracking_eval_on_card),
+                     ("bus mission", lambda: bus_mission_on_card(wfc)),
+                     ("low level", low_level_card_vs_cpu),
+                     ("known-map push", lambda: known_map_push_on_card(wfc))):
+        _phase(name)
+        fn()
+
 def variants_on_card():
     """The variants behind the production profile at B=64, N=50, on the
     card: catches tensors made on the wrong device, which CPU tests
@@ -898,6 +999,255 @@ def variants_on_card():
     assert icr_var.shape == (B, 3)
     print("estimator extras after 800 ticks of a steady turn: "
           + json.dumps(aux), flush=True)
+
+
+def _to(tree, device):
+    """A NamedTuple of tensors (nested) on `device`."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_to(v, device) for v in tree))
+    return tree
+
+
+def _contact_views(n, steps, seed):
+    """Observation histories and graph inputs the served policy sees: `n`
+    contact-plant scenes after `steps` random actions, on the CPU."""
+    from alore_legged_manipulator_tpu_torch.rl import env_physics as ep
+    cfg = ep.PhysicsEnvConfig()
+    st = ep.env_reset(torch.Generator().manual_seed(seed), cfg, n_envs=n,
+                      device="cpu")
+    rng = np.random.default_rng(seed)
+    for _ in range(steps):
+        a = torch.as_tensor(rng.uniform(-1, 1, (n, 9)), dtype=torch.float32)
+        st = ep.env_step(st, a, cfg)[0]
+    return ep.as_surrogate_view(st)
+
+
+def policy_card_vs_cpu():
+    """The trained policy (models/weights/highlevel_physics_6000.npz) at
+    full width on the card against the CPU: mean actions and velocity
+    estimates on 256 observation histories and graphs (the graphs built
+    on each device), f32, within 1e-4; then the B=1 forward of the
+    deployment node (`make_actor_policy`: graph build + actor), each call
+    ended by a synchronize, p50 and p99 against the 50 Hz tick's budget,
+    and its dispatched operations."""
+    from alore_legged_manipulator_tpu_torch.models.gnn import (
+        build_interaction_graph)
+    from alore_legged_manipulator_tpu_torch.models.torch_convert import (
+        load_highlevel_actor)
+    from alore_legged_manipulator_tpu_torch.rl.env import graph_features
+    from alore_legged_manipulator_tpu_torch.rl.eval import actor_mean
+    from alore_legged_manipulator_tpu_torch.runtime.highlevel_controller \
+        import make_actor_policy
+    t0 = time.perf_counter()
+    gpu = load_highlevel_actor()
+    cpu = load_highlevel_actor(device="cpu")
+    load_s = time.perf_counter() - t0
+    view = _contact_views(256, 12, seed=5)
+    with torch.no_grad():
+        g_c = build_interaction_graph(*graph_features(view))
+        m_c, _, v_c = cpu(view.obs_hist, g_c)
+        vg = _to(view, "cuda")
+        g_g = build_interaction_graph(*graph_features(vg))
+        m_g, _, v_g = gpu(vg.obs_hist, g_g)
+    err = {"mean_action": float((m_g.cpu() - m_c).abs().max()),
+           "vel_estimate": float((v_g.cpu() - v_c).abs().max()),
+           "graph": max(float((g_g.nodes.cpu() - g_c.nodes).abs().max()),
+                        float((g_g.edge_attr.cpu() - g_c.edge_attr
+                               ).abs().max())),
+           "mean_action_abs_max": float(m_c.abs().max())}
+    fn = make_actor_policy(gpu)
+    one = _to(type(view)(*(v[:1] for v in view)), "cuda")
+    for _ in range(20):
+        fn(one.obs_hist[0], one)
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(200):
+        t1 = time.perf_counter()
+        fn(one.obs_hist[0], one)
+        torch.cuda.synchronize()
+        lat.append(1e3 * (time.perf_counter() - t1))
+    lat = np.asarray(lat)
+    ops = dispatched_ops(lambda: fn(one.obs_hist[0], one))
+    ops_batch = dispatched_ops(lambda: actor_mean(gpu, vg))
+    summary = {"max_abs_err": err, "b1_forward_ms_p50": float(
+        np.percentile(lat, 50)), "b1_forward_ms_p99": float(
+        np.percentile(lat, 99)), "budget_ms": POLICY_BUDGET_MS,
+        "dispatched_ops": ops, "dispatched_ops_b256": ops_batch,
+        "load_s": load_s}
+    print("trained policy, card vs CPU (256 contact-plant histories), B=1 "
+          "latency: " + json.dumps(summary), flush=True)
+    assert err["mean_action"] <= 1e-4 and err["vel_estimate"] <= 1e-4, err
+    assert bool(torch.isfinite(m_g).all())
+    return summary
+
+
+def tracking_eval_on_card():
+    """examples/train_and_deploy_highlevel.py's fixed-command eval on the
+    contact plant, on the card: 256 lanes, 128 at (0.5, 0, 0) and 128 at
+    (0.3, 0, 0.8), 100 steps, mean |velocity error| per axis over the
+    last 50, held to the JAX package's value + 0.05 per axis."""
+    from alore_legged_manipulator_tpu_torch.models.torch_convert import (
+        load_highlevel_actor)
+    from alore_legged_manipulator_tpu_torch.rl import env_physics as ep
+    from alore_legged_manipulator_tpu_torch.rl.eval import (
+        steady_state_tracking)
+    actor = load_highlevel_actor()
+    pcfg = ep.PhysicsEnvConfig()
+    st = ep.env_reset(torch.Generator().manual_seed(0), pcfg, n_envs=256)
+    step_ops = dispatched_ops(lambda: ep.env_step(
+        st, torch.zeros(256, 9, device="cuda"), pcfg))
+    cmds = np.concatenate([np.tile([[0.5, 0.0, 0.0]], (128, 1)),
+                           np.tile([[0.3, 0.0, 0.8]], (128, 1))])
+    times = []
+    t0 = time.perf_counter()
+    err = steady_state_tracking(actor, cmds, cfg=pcfg, seed=123,
+                                step_times=times)
+    wall = time.perf_counter() - t0
+    summary = {"lanes": 256, "steps": 100, "err_per_axis": err.tolist(),
+               "jax_err_per_axis": list(JAX_EVAL_ERR),
+               "step_ms_median": 1e3 * float(np.median(times)),
+               "step_ms_mean": 1e3 * float(np.mean(times)),
+               "env_step_dispatched_ops": step_ops, "wall_s": wall}
+    print("tracking eval on the contact plant, on the card: "
+          + json.dumps(summary), flush=True)
+    for a, ref in zip(err, JAX_EVAL_ERR):
+        assert np.isfinite(a) and a <= ref + 0.05, (err, JAX_EVAL_ERR)
+    return summary
+
+
+def bus_mission_on_card(wfc):
+    """The perception -> FSM -> trained-policy mission of
+    examples/train_and_deploy_highlevel.py over one MessageBus, the
+    contact-plant env on the card: item (2, 0.5), target (4, 2), dt 0.02,
+    at most 20000 ticks; must reach DONE within 0.5 m.  Host wall time by
+    phase (perception, FSM, policy, env step, host rest)."""
+    from alore_legged_manipulator_tpu_torch.mission.object_fsm import (
+        FsmState)
+    from alore_legged_manipulator_tpu_torch.models.torch_convert import (
+        load_highlevel_actor)
+    from alore_legged_manipulator_tpu_torch.runtime.bus_mission import (
+        MissionFsmNode, PerceptionNode, WorldState)
+    from alore_legged_manipulator_tpu_torch.runtime.deploy import MessageBus
+    from alore_legged_manipulator_tpu_torch.runtime.highlevel_controller \
+        import HighLevelControllerNode, make_actor_policy
+    items, targets = [(2.0, 0.5, 0.0)], [(4.0, 2.0, 0.0)]
+    bus = MessageBus()
+    world = WorldState(robot=np.zeros(3),
+                       objects=[np.asarray(items[0], float).copy()]
+                       + [np.zeros(3)] * 3)
+    percept = PerceptionNode(bus, seed=7)
+    fsm_node = MissionFsmNode(bus, items, targets, order=[0], dt=0.02)
+    ctrl = HighLevelControllerNode(bus, world,
+                                   make_actor_policy(load_highlevel_actor()),
+                                   physics=True)
+    clock = PhaseClock()
+    clock.wrap(percept, "tick", "perception")
+    clock.wrap(fsm_node, "tick", "fsm")
+    clock.wrap(ctrl, "policy_fn", "policy")
+    clock.wrap(ctrl, "_step", "env_step")
+    wfc.reset_launches()
+    ticks = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while fsm_node.fsm.state != FsmState.DONE and ticks < 20000:
+            percept.tick(world)
+            fsm_node.tick()
+            ctrl.tick(dt=0.02)
+            ticks += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        clock.restore()
+    launches = dict(wfc.LAUNCHES)
+    err = float(np.linalg.norm(world.objects[0][:2]
+                               - np.asarray(targets[0])[:2]))
+    summary = {"state": fsm_node.fsm.state.name, "ticks": ticks,
+               "final_object_err_m": err, "wall_s": wall,
+               "policy_ticks": clock.calls.get("policy", 0),
+               "wall_by_phase_s": clock.report(wall),
+               "kernel_launches": launches}
+    print("bus mission with the trained policy, contact plant, on the "
+          "card: " + json.dumps(summary), flush=True)
+    assert fsm_node.fsm.state == FsmState.DONE and err < 0.5, summary
+    return summary, launches
+
+
+def low_level_card_vs_cpu():
+    """The frozen low-level WBC with seeded random weights (no trained
+    low-level checkpoint is in the repository), card against CPU: 50
+    `DeployController` ticks through `run_obs_assembly_tick` at f32
+    (joint targets within 1e-4), then 10 contact-plant
+    `hierarchical_env_step`s at f64 on 4 lanes (poses, velocities and
+    joints within 1e-9)."""
+    import copy
+
+    from alore_legged_manipulator_tpu_torch.rl import env_physics as ep
+    from alore_legged_manipulator_tpu_torch.rl.hierarchy import (
+        low_level_policy_cfg, robot_reset)
+    from alore_legged_manipulator_tpu_torch.runtime import deploy as dp
+    from alore_legged_manipulator_tpu_torch.runtime.obs_assembly import (
+        LowObsState, split_obs799)
+    torch.manual_seed(0)
+    base = low_level_policy_cfg().eval()
+    pols = {d: copy.deepcopy(base).to(d) for d in ("cuda", "cpu")}
+    rng = np.random.default_rng(3)
+    ctls = {d: dp.DeployController(
+        bus=dp.MessageBus(), low_level_fn=dp.make_low_level_fn(pols[d]),
+        cfg=dp.DeployConfig(move_to_default_s=0.04)) for d in pols}
+    states = {d: LowObsState.create(device=d) for d in pols}
+    for c in ctls.values():
+        c.request_policy()
+    t0 = time.perf_counter()
+    q_err = 0.0
+    for _ in range(50):
+        ls = {"roll": rng.normal() * 0.05, "pitch": rng.normal() * 0.05,
+              "ang_vel": rng.normal(size=3), "q": rng.normal(size=18) * 0.3,
+              "dq": rng.normal(size=18)}
+        cmd_v = rng.uniform(-1, 1, 3)
+        out = {}
+        for d, c in ctls.items():
+            states[d], _, obs = dp.run_obs_assembly_tick(states[d], ls,
+                                                         cmd_v, c.cfg)
+            p, _, hist = split_obs799(obs)
+            c.bus.publish("low_state", {"q": ls["q"], "dq": ls["dq"],
+                                        "prop": p.cpu().numpy(),
+                                        "prop_hist": hist.cpu().numpy()})
+            out[d] = c.tick()
+        assert ctls["cuda"].state == ctls["cpu"].state
+        q_err = max(q_err, float(np.abs(out["cuda"].q_target
+                                        - out["cpu"].q_target).max()))
+    deploy_s = time.perf_counter() - t0
+    assert ctls["cuda"].state == dp.DeployState.POLICY
+
+    cfg = ep.PhysicsEnvConfig()
+    st0 = ep.env_reset(torch.Generator().manual_seed(4), cfg, torch.float64,
+                       n_envs=4, device="cpu")
+    sides = {d: [_to(st0, d), robot_reset(torch.float64, 4, device=d),
+                 pols[d].double()] for d in pols}
+    acts = rng.uniform(-1, 1, (10, 4, 9)).astype(np.float32)
+    t0 = time.perf_counter()
+    for a in acts:
+        for d, sd in sides.items():
+            sd[0], sd[1], _, _, _ = ep.hierarchical_env_step(
+                sd[0], sd[1], torch.as_tensor(a, device=d), sd[2], cfg)
+    hier_s = time.perf_counter() - t0
+    (sg, rg, _), (sc, rc, _) = sides["cuda"], sides["cpu"]
+    h_err = max(float((sg.bodies.pose.cpu() - sc.bodies.pose).abs().max()),
+                float((sg.bodies.vel.cpu() - sc.bodies.vel).abs().max()),
+                float((rg.q.cpu() - rc.q).abs().max()),
+                float((rg.obs_state.hist.cpu() - rc.obs_state.hist
+                       ).abs().max()))
+    summary = {"deploy_ticks": 50, "q_target_max_abs_err": q_err,
+               "deploy_wall_s": deploy_s, "hierarchy_steps": 10,
+               "hierarchy_max_abs_err_f64": h_err,
+               "hierarchy_wall_s": hier_s}
+    print("low-level WBC, card vs CPU: " + json.dumps(summary), flush=True)
+    assert q_err <= 1e-4, q_err
+    assert h_err <= 1e-9, h_err
+    return summary
 
 
 def main() -> int:
@@ -1048,7 +1398,8 @@ def main() -> int:
     #      a small fleet card vs CPU ----
     launches_ring = ring_fleet(mf, wf, wfc, items32, targets32, robot0, esdf,
                                icr, field_m, base)
-    leg_phases(mf, items32, targets32, robot0, esdf, icr, cfg, push_ticks=60)
+    leg_phases(mf, items32, targets32, robot0, esdf, icr, cfg,
+               push_ticks=LEG_PUSH_TICKS)
     _phase("small fleet: card vs CPU plain")
     small_fleet_card_vs_cpu(items32, targets32, robot0, occ, cfg, icr)
 
@@ -1057,10 +1408,11 @@ def main() -> int:
     launches_phys, _ = physics_fleet(mf, wfc, esdf, icr, cfg.backend)
     _phase("contact plant: card vs CPU")
     physics_card_vs_cpu()
-    _phase("arrangement mission on the card, contact plant, first object")
-    arrangement_on_card(wfc, mapped=False)
+    _phase("known-map arrangement push on the card, contact plant (plan, "
+           f"first {KNOWN_MAP_PUSH_S} s)")
+    known_map_push_on_card(wfc)
     _phase("lidar-mapped arrangement mission on the card, contact plant")
-    _, launches_mapped = arrangement_on_card(wfc, mapped=True)
+    _, launches_mapped = arrangement_on_card(wfc)
 
     # ---- 6. the planner simulation ----
     _phase("planner simulation, LTV-MPC, corridor (perspective)")
@@ -1074,7 +1426,19 @@ def main() -> int:
     _phase("variants on the card")
     variants_on_card()
 
-    # ---- 8. result lines ----
+    # ---- 8. the trained high-level policy, served ----
+    _phase("trained policy: card vs CPU, B=1 latency")
+    policy_card_vs_cpu()
+    _phase("tracking eval on the contact plant, 256 lanes x 100 steps")
+    wfc.reset_launches()
+    tracking_eval_on_card()
+    launches_eval = dict(wfc.LAUNCHES)
+    _phase("bus mission with the trained policy in the loop")
+    _, launches_bus = bus_mission_on_card(wfc)
+    _phase("low-level WBC: card vs CPU")
+    low_level_card_vs_cpu()
+
+    # ---- 9. result lines ----
     kern = []
     for name, replaces in (
             ("wavefront_packed",
@@ -1091,6 +1455,8 @@ def main() -> int:
             launches_mapped_arrangement=launches_mapped[name],
             launches_planner_sim_ltv=launches_ps_ltv[name],
             launches_planner_sim_nmpc=launches_ps_nmpc[name],
+            launches_policy_eval=launches_eval[name],
+            launches_bus_mission=launches_bus[name],
             max_abs_err=max(m["max_abs_err"], m100[name]["max_abs_err"],
                             m64[name]["max_abs_err"]),
             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
