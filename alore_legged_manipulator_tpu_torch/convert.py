@@ -17,7 +17,15 @@ as it is, or add the axis before converting (`add_lane_axis`).
 
 `state_dict_from_flax` (from `models/torch_convert.py`) carries the JAX
 package's flax parameter trees, as numpy, into the `state_dict`s of the
-port's `PhysicActorCritic`, `Critic` and `ActorCriticLow`.
+port's `PhysicActorCritic`, `Critic` and `ActorCriticLow`.  Two classes
+hold such trees and are carried by their own rules:
+
+  * `PpoState`: its `{"actor", "critic"}` parameters become the port's
+    modules (`rl/runner.py::load_models`) and optax's `ScaleByAdamState`
+    (mu, nu, count) becomes a `torch.optim.Adam` over their trainable
+    parameters (exp_avg, exp_avg_sq, step); the lr becomes a float.
+  * `TrainConfig`: a `low_level_params` tree becomes the frozen
+    `ActorCriticLow` module the port's runner takes.
 """
 from __future__ import annotations
 
@@ -79,6 +87,13 @@ _CLASSES = {
     "RobotState": "rl.hierarchy",
     "PhysicsEnvConfig": "rl.env_physics",
     "PhysPushEnvState": "rl.env_physics",
+    "PpoConfig": "rl.ppo",
+    "Rollout": "rl.ppo",
+    "TrainConfig": "rl.runner",
+    "CameraModel": "world.camera",
+    "BoxScene": "world.camera",
+    "VoxelMapConfig": "world.voxel_map",
+    "VoxelMapState": "world.voxel_map",
 }
 
 # dataclass configs: class name -> module of the port that defines it
@@ -120,12 +135,55 @@ def torch_dtype(dt):
     return getattr(torch, np.dtype(dt).name)
 
 
+def _ppo_state(obj, device):
+    """JAX `PpoState` (numpy leaves) -> the port's, on `device` (None:
+    the CPU), in the parameters' dtype."""
+    from .rl.ppo import PpoConfig, ppo_init
+    from .rl.runner import load_models
+
+    leaf = np.asarray(obj.params["critic"]["params"]["Dense_0"]["kernel"])
+    models = load_models(obj.params, device=device or "cpu",
+                         dtype=torch_dtype(leaf.dtype))
+    params = {"actor": models.actor, "critic": models.critic}
+    state = ppo_init(params, PpoConfig(lr=float(obj.lr)))
+    adam, = [s for s in obj.opt_state
+             if type(s).__name__ == "ScaleByAdamState"]
+    for k, m in params.items():
+        mu = state_dict_from_flax(adam.mu[k])
+        nu = state_dict_from_flax(adam.nu[k])
+        for name, p in m.named_parameters():
+            if p.requires_grad:
+                state.opt_state.state[p] = {
+                    "step": torch.tensor(float(np.asarray(adam.count)),
+                                         dtype=torch.float32),
+                    "exp_avg": mu[name].to(p),
+                    "exp_avg_sq": nu[name].to(p)}
+    return state
+
+
+def _low_level(tree, device):
+    """A flax low-level parameter tree -> the frozen `ActorCriticLow`."""
+    from .rl.hierarchy import low_level_policy_cfg
+
+    leaf = np.asarray(tree["params"]["backbone"]["Dense_0"]["kernel"])
+    low = low_level_policy_cfg().to(device=device or "cpu",
+                                    dtype=torch_dtype(leaf.dtype))
+    low.load_state_dict(state_dict_from_flax(tree))
+    return low.requires_grad_(False)
+
+
 def from_jax_numpy(obj, device=None):
     """Convert a numpy-leaved JAX-package pytree/config to the port."""
     if isinstance(obj, np.ndarray) or isinstance(obj, np.generic):
         return torch.as_tensor(np.array(obj), device=device)
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
         name = type(obj).__name__
+        if name == "PpoState":
+            return _ppo_state(obj, device)
+        if name == "TrainConfig" and isinstance(obj.low_level_params, dict):
+            low = _low_level(obj.low_level_params, device)
+            return from_jax_numpy(obj._replace(low_level_params=None),
+                                  device)._replace(low_level_params=low)
         if name not in _CLASSES:
             raise TypeError(f"no port counterpart for {name}")
         cls = port_class(name)

@@ -28,6 +28,9 @@ class PhysicEstimator(nn.Module):
         super().__init__()
         self.lstm = nn.LSTM(in_dim, lstm_hidden, num_layers=1,
                             batch_first=True)
+        # flax's cell has one bias, on the h side: the input-side bias
+        # stays zero and is not trained
+        self.lstm.bias_ih_l0.requires_grad_(False)
         self.Dense_0 = nn.Linear(lstm_hidden, mlp_hidden)
         self.Dense_1 = nn.Linear(mlp_hidden, out_dim)
 

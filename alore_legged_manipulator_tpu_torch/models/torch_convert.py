@@ -52,6 +52,10 @@ WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "weights")
 HIGHLEVEL_PHYSICS_6000 = os.path.join(WEIGHTS_DIR,
                                       "highlevel_physics_6000.npz")
+# the JAX package's seed-0 initial training parameters ({"actor",
+# "critic"}): the start of examples/artifacts/train_physics_6000.csv
+TRAIN_INIT_PHYSICS_SEED0 = os.path.join(WEIGHTS_DIR,
+                                        "train_init_physics_seed0.npz")
 
 
 def load_torch_state_dict(path):
@@ -273,6 +277,39 @@ def state_dict_from_flax(tree, prefix=""):
             out.update(state_dict_from_flax(node, prefix + name + "."))
     return {k: torch.as_tensor(np.ascontiguousarray(v))
             for k, v in out.items()}
+
+
+def flax_from_state_dict(sd):
+    """The inverse of `state_dict_from_flax`: a port module's state_dict
+    -> its flax parameter tree `{"params": ...}` (numpy leaves).  The
+    LSTM's two biases fold into flax's one (h-side) bias."""
+    tree = {}
+
+    def node(path):
+        n = tree
+        for p in path:
+            n = n.setdefault(p, {})
+        return n
+
+    for name, t in sd.items():
+        a = t.detach().cpu().numpy()
+        *path, leaf = name.split(".")
+        if path and path[-1] == "lstm":
+            cell = path[:-1] + ["OptimizedLSTMCell_0"]
+            side = "h" if leaf in ("weight_hh_l0", "bias_hh_l0") else "i"
+            for g, blk in zip(_GATES, np.split(a, 4)):
+                if leaf.startswith("weight"):
+                    node(cell + [side + g])["kernel"] = \
+                        np.ascontiguousarray(blk.T)
+                else:
+                    bias = node(cell + ["h" + g])
+                    bias["bias"] = bias.get("bias", 0) + blk
+        elif leaf == "weight":
+            node(path)["kernel"] = np.ascontiguousarray(
+                a.T if a.ndim == 2 else a.transpose(2, 1, 0))
+        else:
+            node(path)[leaf] = a
+    return {"params": tree}
 
 
 def flatten_flax(tree, prefix=""):

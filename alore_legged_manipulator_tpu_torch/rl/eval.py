@@ -9,9 +9,10 @@ tracking-accuracy analysis.  The rollout runs on the device of the
 policy, one batched step per control tick; only the final arrays come
 to the host.
 
-`rollout_tracking` takes the port's `PhysicActorCritic` itself (the JAX
-package takes its training runner's models and their parameters; the
-trainer is not ported yet).  `steady_state_tracking` is the served
+`rollout_tracking` takes the actor: a `PhysicActorCritic`, or the
+training runner's `Models` (`rl/runner.py`), whose modules hold their
+parameters (the JAX package takes the runner's models and parameters
+apart).  `steady_state_tracking` is the served
 policy's fixed-command eval of examples/train_and_deploy_highlevel.py
 (lines 124-156) on the contact-plant env it was trained on.
 """
@@ -41,11 +42,13 @@ def rollout_tracking(actor, n_envs: int, n_steps: int,
                      states=None):
     """Deterministic (mean-action) eval rollout on the surrogate env, on
     the actor's device and in its dtype; resets drawn from a generator
-    seeded `seed`, or `states` (n_envs lanes) given.
+    seeded `seed`, or `states` (n_envs lanes) given.  `actor`: a
+    `PhysicActorCritic` or the runner's `Models`.
 
     Returns dict of (n_steps, n_envs, ...) numpy arrays: commanded and
     realized object velocity, reward, done.
     """
+    actor = getattr(actor, "actor", actor)
     p = next(actor.parameters())
     st = states
     if st is None:

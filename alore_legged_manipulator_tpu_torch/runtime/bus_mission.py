@@ -20,10 +20,10 @@ packed float arrays, exactly like the reference topics.
 
 Port of runtime/bus_mission.py: host numpy over the port's
 `mission/object_fsm.py`, `runtime/contracts.py`, `runtime/deploy.py`
-(`MessageBus`) and `runtime/z1_arm.py`.  `perception="camera"` needs the
-rendered-camera perception (`world/camera.py`,
-`runtime/camera_perception.py`), which the port does not have yet: it
-raises `ValueError` naming them.
+(`MessageBus`) and `runtime/z1_arm.py`.  With `perception="camera"` the
+perception node renders its camera frames on `device` (None: the card;
+`runtime/camera_perception.py`); the rest of the graph stays on the
+host.
 """
 from __future__ import annotations
 
@@ -226,12 +226,13 @@ class BusMissionReport:
 def run_bus_mission(items, targets, order=None, robot_start=(0.0, 0.0, 0.0),
                     max_ticks: int = 20000, seed: int = 0,
                     dt: float = 0.05,
-                    perception: str = "mocap") -> BusMissionReport:
+                    perception: str = "mocap",
+                    device=None) -> BusMissionReport:
     """Compose the three nodes over one bus and run to completion.
 
-    perception: "mocap" (VRPN twin); "camera" (rendered depth+semantic
-    frames, runtime/camera_perception.py) raises ValueError until that
-    module is ported.
+    perception: "mocap" (VRPN twin) or "camera" (rendered depth+semantic
+    frames -> YOLO-style range/bearing + near-field tag handoff,
+    runtime/camera_perception.py, rendered on `device`, None: the card).
     """
     bus = MessageBus()
     world = WorldState(robot=np.asarray(robot_start, float).copy(),
@@ -239,11 +240,11 @@ def run_bus_mission(items, targets, order=None, robot_start=(0.0, 0.0, 0.0),
     if order is None:
         order = list(range(len(items)))
     if perception == "camera":
-        raise ValueError(
-            "perception='camera' needs world/camera.py and "
-            "runtime/camera_perception.py, which are not ported yet; use "
-            "perception='mocap'")
-    percept = PerceptionNode(bus, seed=seed)
+        from .camera_perception import CameraPerceptionNode
+        percept = CameraPerceptionNode(bus, n_objects=len(items), seed=seed,
+                                       device=device)
+    else:
+        percept = PerceptionNode(bus, seed=seed)
     fsm_node = MissionFsmNode(bus, items, targets, order, dt=dt)
     ctrl = ControllerNode(bus, world, dt=dt)
 

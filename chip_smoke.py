@@ -88,10 +88,23 @@ since the script started:
    against CPU (50 deployment ticks at f32 within 1e-4, 10 contact-plant
    hierarchy steps at f64 within 1e-9).  `served_probe()` runs these and
    the known-map push alone.
-9. The `kernels` JSON line (with K1 and K2's launches on each path, 0 on
-   the planner simulation, the mapped mission and the served policy,
-   whose paths hold no wavefront), the script's wall time, and as the
-   last line {"ok": true, "device": {...}}.
+9. Training the high-level policy and the camera perception path: PPO
+   at full width (B=1536 x 24 contact-plant steps, TRAIN_ITERS
+   iterations) from the JAX package's seed-0 initial parameters
+   (models/weights/train_init_physics_seed0.npz), each iteration printed
+   beside examples/artifacts/train_physics_6000.csv, iteration 0's KL
+   and lr and the rewards of iterations 0 and 9 held to REWARD_BANDS
+   (set by `training_bands()`), the estimator loss within 3x of the
+   CSV's; the trained state through the checkpoint round trip (mean
+   actions bit for bit); one f64 PPO update card vs CPU (1e-9); the
+   camera's frame card vs CPU and the depth cloud into the voxel map;
+   the bus mission on camera perception (every object delivered within
+   0.35 m, wall by phase).  `train_camera_probe()` runs these alone.
+10. The `kernels` JSON line (with K1 and K2's launches on each path, 0
+   on the planner simulation, the mapped mission, the served policy,
+   training and the camera mission, whose paths hold no wavefront), the
+   script's wall time, and as the last line {"ok": true, "device":
+   {...}}.
 
 Fails (non-zero exit, no result line) without a CUDA card or without the
 package beside it.  Imports nothing of JAX.
@@ -112,7 +125,7 @@ SMEM_BYTES_PER_S = 132 * 128 * 1.98e9
 T_START = time.perf_counter()
 # simulated seconds of the two planner-simulation phases (depth cut)
 PS_LTV_T = 0.5
-PS_NMPC_T = 0.5
+PS_NMPC_T = 0.3
 # simulated seconds of the known-map arrangement's push (depth cut)
 KNOWN_MAP_PUSH_S = 1.0
 # push ticks of the ring fleet and of the timed first leg (depth cuts)
@@ -122,6 +135,20 @@ LEG_PUSH_TICKS = 30
 # policy, per axis (vx, vy, wz), on the CPU (tests/jax_tracking_eval.py)
 JAX_EVAL_ERR = (0.111050, 0.053142, 0.103891)
 POLICY_BUDGET_MS = 20.0         # one tick of the 50 Hz high-level loop
+# the JAX package's contact-plant training run, and the iterations the
+# training phase runs from its start
+TRAIN_CSV = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "examples", "artifacts", "train_physics_6000.csv")
+TRAIN_ITERS = 10
+# mean reward bands around the CSV's iterations 0 and 9, from the port's
+# own runs of the same configuration under generator seeds 1-3
+# (`training_bands()`): half-width 1.5x the range of their values and
+# the CSV's
+REWARD_BANDS = {0: (0.5782137215137482, 0.6098267734050751),
+                9: (0.6905695199966431, 2.223431944847107)}
+# pixels of differing label or mask allowed between two f32 renders
+# (tests/test_torch_camera.py holds the port to JAX with the same count)
+EDGE_PIXELS_F32 = 4
 
 
 def _phase(name):
@@ -200,9 +227,10 @@ def check_kernels(wf, wfc, label, occ, goals, starts, path_len, iters):
     return out
 
 
-def dispatched_ops(fn) -> int:
+def dispatched_ops(fn, grad=False) -> int:
     """Number of PyTorch operations `fn` dispatches, views included: what
-    a launch-bound path pays for on any device."""
+    a launch-bound path pays for on any device (`grad`: with autograd on,
+    the backward's operations included)."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Count(TorchDispatchMode):
@@ -211,7 +239,7 @@ def dispatched_ops(fn) -> int:
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             Count.n += 1
             return func(*args, **(kwargs or {}))
-    with Count(), torch.no_grad():
+    with Count(), torch.set_grad_enabled(grad):
         fn()
     return Count.n
 
@@ -1250,6 +1278,394 @@ def low_level_card_vs_cpu():
     return summary
 
 
+# ---------------------------------------------------------------------------
+# 9. training the high-level policy, and the camera perception path
+# ---------------------------------------------------------------------------
+
+def _csv_rows(n):
+    """The first `n` rows of the JAX package's contact-plant training
+    run (examples/artifacts/train_physics_6000.csv), as floats."""
+    import csv
+    with open(TRAIN_CSV, newline="") as f:
+        rows = list(csv.DictReader(f))[:n]
+    return [{k: float(v) for k, v in r.items()} for r in rows]
+
+
+def _train_cfg(**over):
+    from alore_legged_manipulator_tpu_torch.rl import registry
+    kw = dict(num_envs=1536, steps_per_env=24, iterations=TRAIN_ITERS,
+              physics_env=True)
+    kw.update(over)
+    return registry.make("Alore-Push-Flat-v0", **kw)
+
+
+def _init_models(device=None, dtype=torch.float32):
+    """The JAX package's seed-0 initial parameters, the start of the
+    CSV's run (models/weights/train_init_physics_seed0.npz)."""
+    from alore_legged_manipulator_tpu_torch.models.torch_convert import (
+        TRAIN_INIT_PHYSICS_SEED0, load_flax_npz)
+    from alore_legged_manipulator_tpu_torch.rl.runner import load_models
+    return load_models(load_flax_npz(TRAIN_INIT_PHYSICS_SEED0), device=device,
+                       dtype=dtype)
+
+
+def train_dispatches(cfg):
+    """Operations one contact-plant env step dispatches at the config's
+    width, and one PPO update of one minibatch (GAE, normalisation, the
+    forward, the backward, the clip and one Adam step), on the card."""
+    import copy
+
+    from alore_legged_manipulator_tpu_torch.rl import ppo as pp
+    from alore_legged_manipulator_tpu_torch.rl import runner as rn
+    env = rn.make_env(cfg)
+    gen = torch.Generator().manual_seed(11)
+    st = env.reset(gen, cfg.num_envs)
+    step = dispatched_ops(lambda: env.step(
+        st, torch.zeros(cfg.num_envs, 9, device="cuda")))
+    models = _init_models()
+    params = {"actor": copy.deepcopy(models.actor),
+              "critic": copy.deepcopy(models.critic)}
+    small = cfg._replace(num_envs=6, steps_per_env=2)
+    draws = rn.Draws(env, gen, torch.Generator("cuda").manual_seed(12))
+    _, ro, last = rn.collect(params, env, env.reset(gen, 6), small, draws)
+    one = pp.PpoConfig(epochs=1, minibatches=1)
+    update = dispatched_ops(lambda: pp.ppo_update(
+        pp.ppo_init(params, one), ro, last, rn._apply_all, one), grad=True)
+    return {"env_step": step, "update_one_minibatch": update}
+
+
+def training_on_card(seed=0, check=True):
+    """PPO training at full width on the card from the CSV's start: the
+    JAX package's seed-0 initial parameters, `registry.make(
+    "Alore-Push-Flat-v0", num_envs=1536, steps_per_env=24, iterations=
+    TRAIN_ITERS, physics_env=True)`, f32, the generators seeded `seed`.
+    Prints each iteration's row beside the CSV's, the wall time per
+    iteration split into collection and update, env steps/s (the number
+    examples/train_and_deploy_highlevel.py prints).  Held (with `check`):
+    every metric and parameter finite; iteration 0's KL above 0.02 and
+    its lr 1e-3 / 1.5**5 to 1e-9 relative; the mean reward of iterations
+    0 and 9 inside REWARD_BANDS around the CSV's, iteration 9's above
+    iteration 0's; the estimator loss within 3x of the CSV's row.
+    Returns (ppo_state, history, summary)."""
+    from alore_legged_manipulator_tpu_torch.rl.runner import train
+    cfg = _train_cfg(seed=seed)
+    csv_rows = _csv_rows(TRAIN_ITERS)
+    keys = ("mean_reward", "estimator_loss", "kl", "lr", "policy_loss",
+            "value_loss")
+    timings = []
+
+    def progress(it, m):
+        c, u = timings[-1]
+        print(f"iter {it}: port " + json.dumps({k: m[k] for k in keys})
+              + " | csv " + json.dumps({k: csv_rows[it][k] for k in keys})
+              + f" | collect {c:.3f} s, update {u:.3f} s", flush=True)
+
+    models = _init_models()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, hist = train(cfg, progress=progress, models=models,
+                        timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = cfg.iterations * cfg.num_envs * cfg.steps_per_env
+    summary = {
+        "seed": seed, "num_envs": cfg.num_envs,
+        "steps_per_env": cfg.steps_per_env, "iterations": cfg.iterations,
+        "wall_s": wall, "env_steps_per_s": steps / wall,
+        "collect_s": [t[0] for t in timings],
+        "update_s": [t[1] for t in timings],
+        "reward_it0": hist[0]["mean_reward"],
+        "reward_last": hist[-1]["mean_reward"]}
+    print("training on the card: " + json.dumps(summary), flush=True)
+    if check:
+        lr0 = 1e-3 / 1.5 ** 5
+        assert all(np.isfinite(v) for h in hist for v in h.values()), hist
+        assert all(bool(torch.isfinite(p).all())
+                   for m in state.params.values() for p in m.parameters())
+        assert hist[0]["kl"] > 0.02, hist[0]
+        assert abs(hist[0]["lr"] - lr0) <= 1e-9 * lr0, hist[0]["lr"]
+        for it, (lo, hi) in REWARD_BANDS.items():
+            r = hist[it]["mean_reward"]
+            assert lo <= csv_rows[it]["mean_reward"] <= hi
+            assert lo <= r <= hi, (it, r, (lo, hi))
+        assert hist[-1]["mean_reward"] > hist[0]["mean_reward"]
+        for h, c in zip(hist, csv_rows):
+            e, ce = h["estimator_loss"], c["estimator_loss"]
+            assert ce / 3 <= e <= 3 * ce, (e, ce)
+    return state, hist, summary
+
+
+def training_bands():
+    """The training phase under generator seeds 1, 2 and 3 (same initial
+    parameters, no holds): the mean reward of iterations 0 and 9 in each,
+    and the bands they give around the CSV's values: half-width 1.5x the
+    range of the three runs' values and the CSV's.  Alone:
+    `python3 -c "import chip_smoke; chip_smoke.training_bands()"`."""
+    from alore_legged_manipulator_tpu_torch.utils.precision import (
+        set_precision_policy)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+    set_precision_policy()
+    csv_rows = _csv_rows(TRAIN_ITERS)
+    seen = {it: [] for it in REWARD_BANDS}
+    for seed in (1, 2, 3):
+        _, hist, _ = training_on_card(seed=seed, check=False)
+        for it in seen:
+            seen[it].append(hist[it]["mean_reward"])
+    out = {}
+    for it, vals in seen.items():
+        ref = csv_rows[it]["mean_reward"]
+        half = 1.5 * (max(vals + [ref]) - min(vals + [ref]))
+        out[it] = {"runs": vals, "csv": ref, "band": (ref - half, ref + half),
+                   "csv_inside_runs_range": min(vals) <= ref <= max(vals)}
+    print("training bands: " + json.dumps(out), flush=True)
+    return out
+
+
+def train_camera_probe():
+    """The training and camera phases alone, with the reward bands set
+    first: `training_bands()`, then the seed-0 run held to them, the
+    checkpoint round trip, the f64 update card vs CPU, the dispatch
+    counts, the camera checks and the camera bus mission (about 5 min):
+    `python3 -c "import chip_smoke; chip_smoke.train_camera_probe()"`."""
+    from alore_legged_manipulator_tpu_torch.ops import wavefront_cuda as wfc
+    bands = training_bands()
+    REWARD_BANDS.update({it: tuple(b["band"]) for it, b in bands.items()})
+    state, _, _ = training_on_card()
+    print("training, dispatched operations: "
+          + json.dumps(train_dispatches(_train_cfg())), flush=True)
+    checkpoint_round_trip_on_card(state)
+    ppo_update_card_vs_cpu()
+    camera_card_vs_cpu()
+    camera_bus_mission_on_card(wfc)
+    print(f"probe wall time: {time.perf_counter() - T_START:.1f} s",
+          flush=True)
+
+
+def checkpoint_round_trip_on_card(state):
+    """The trained state through `save_checkpoint` / `load_checkpoint`
+    (build/chip_smoke_ckpt/step_<n>.npz) into a fresh PhysicActorCritic
+    on the card: mean actions on 256 contact-plant histories bit for
+    bit."""
+    from alore_legged_manipulator_tpu_torch.models.actor_critic import (
+        PhysicActorCritic)
+    from alore_legged_manipulator_tpu_torch.models.gnn import (
+        build_interaction_graph)
+    from alore_legged_manipulator_tpu_torch.models.torch_convert import (
+        state_dict_from_flax)
+    from alore_legged_manipulator_tpu_torch.rl.env import graph_features
+    from alore_legged_manipulator_tpu_torch.rl.runner import (
+        load_checkpoint, save_checkpoint)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_ckpt")
+    out = save_checkpoint(path, state, TRAIN_ITERS)
+    tree = load_checkpoint(path, TRAIN_ITERS)
+    fresh = PhysicActorCritic()
+    fresh.load_state_dict(state_dict_from_flax(tree["actor"]))
+    fresh = fresh.to("cuda")
+    view = _to(_contact_views(256, 12, seed=9), "cuda")
+    with torch.no_grad():
+        g = build_interaction_graph(*graph_features(view))
+        m_trained = state.params["actor"](view.obs_hist, g)[0]
+        m_loaded = fresh(view.obs_hist, g)[0]
+    same = bool(torch.equal(m_trained, m_loaded))
+    print(f"checkpoint round trip ({os.path.basename(out)}, "
+          f"{os.path.getsize(out)} bytes): mean actions on 256 histories "
+          f"bit for bit: {same}", flush=True)
+    assert same
+
+
+def ppo_update_card_vs_cpu():
+    """One PPO update at f64 on the card and on the CPU: a contact-plant
+    rollout of 6 lanes x 4 steps made on the CPU (from the seed-0 initial
+    parameters) and copied to the card, the same permutations; parameters
+    within 1e-9, metrics within 1e-9 relative."""
+    from alore_legged_manipulator_tpu_torch.rl import ppo as pp
+    from alore_legged_manipulator_tpu_torch.rl import runner as rn
+    cfg = _train_cfg(num_envs=6, steps_per_env=4)
+    sides = {d: _init_models(device=d, dtype=torch.float64)
+             for d in ("cpu", "cuda")}
+    params = {d: {"actor": m.actor, "critic": m.critic}
+              for d, m in sides.items()}
+    env = rn.make_env(cfg, torch.float64, "cpu")
+    gen = torch.Generator().manual_seed(3)
+    draws = rn.Draws(env, gen, torch.Generator().manual_seed(4))
+    _, ro, last = rn.collect(params["cpu"], env, env.reset(gen, 6), cfg,
+                             draws)
+    perms = pp.draw_permutations(24, cfg.ppo.epochs,
+                                 torch.Generator().manual_seed(5))
+    metrics = {}
+    for d in ("cpu", "cuda"):
+        _, metrics[d] = pp.ppo_update(
+            pp.ppo_init(params[d], cfg.ppo), _to(ro, d), last.to(d),
+            rn._apply_all, cfg.ppo, perms=perms)
+    p_err = max(float((a.detach().cpu() - b.detach()).abs().max())
+                for k in ("actor", "critic")
+                for a, b in zip(params["cuda"][k].parameters(),
+                                params["cpu"][k].parameters()))
+    m_err = max(abs(float(metrics["cuda"][k]) - float(metrics["cpu"][k]))
+                / max(abs(float(metrics["cpu"][k])), 1e-300)
+                for k in metrics["cpu"])
+    with torch.no_grad():
+        moved = max(float((a - b).abs().max()) for a, b in zip(
+            params["cpu"]["actor"].parameters(), _init_models(
+                device="cpu", dtype=torch.float64).actor.parameters()))
+    summary = {"params_max_abs_err": p_err, "metrics_max_rel_err": m_err,
+               "params_moved_max": moved,
+               "metrics_cpu": {k: float(v) for k, v in
+                               metrics["cpu"].items()}}
+    print("one PPO update, f64, card vs CPU: " + json.dumps(summary),
+          flush=True)
+    assert p_err <= 1e-9 and m_err <= 1e-9 and moved > 1e-6, summary
+
+
+CAM_SCENE = ((96, 72, 90.0), [(4.0, 0.5, 0.3, 0.3, 0.3, 1.0, 1),
+                              (3.0, -1.0, 0.0, 0.3, 0.3, 1.0, 2),
+                              (6.0, 1.5, -0.2, 0.3, 0.3, 1.0, 3)],
+             (0.1, 0.2, 0.5, 0.05))
+
+
+def _cam_frame(dtype, device):
+    from alore_legged_manipulator_tpu_torch.world import camera as cmr
+    (w, h, f), boxes, (x, y, z, yaw) = CAM_SCENE
+    a = torch.as_tensor(np.asarray(boxes), dtype=dtype, device=device)
+    scene = cmr.BoxScene(center=a[:, 0:2], yaw=a[:, 2], half_ext=a[:, 3:5],
+                         height=a[:, 5], sem_id=a[:, 6].to(torch.int32))
+    cam = cmr.CameraModel(fx=f, fy=f, cx=w / 2, cy=h / 2, width=w, height=h)
+    R, t = cmr.pose_matrix((x, y, z), (cmr.ROBOT_CAM_RPY[0],
+                                       cmr.ROBOT_CAM_RPY[1],
+                                       cmr.ROBOT_CAM_RPY[2] + yaw),
+                           dtype=dtype, device=device)
+
+    def frame():
+        depth, sem = cmr.render(cam, R, t, scene)
+        rgb = cmr.render_color(cam, R, t, scene)
+        return depth, sem, rgb, cmr.color_class_masks(rgb, 3)
+    return cam, R, t, frame
+
+
+def camera_card_vs_cpu():
+    """The camera perception node's frame (96x72, three boxes) rendered
+    on the card and on the CPU: at f64 semantics and color masks equal,
+    depth and RGB within 1e-12; at f32 depth within 1e-5 and at most
+    EDGE_PIXELS_F32 pixels of differing label or mask (the count
+    tests/test_torch_camera.py allows against JAX).  Then the depth frame
+    -> `cloud_for_mapping` -> `insert_point_cloud` -> `cast_rays` at f64
+    on both devices, equal, on a map whose voxel boundaries miss the
+    ground plane (on one whose boundary holds it, the ground hits' z, 0
+    up to rounding, may floor to either side: the differing voxels are
+    printed).  Also the time and dispatched operations of one f32 frame
+    (render, color, masks) on the card."""
+    from alore_legged_manipulator_tpu_torch.world import camera as cmr
+    from alore_legged_manipulator_tpu_torch.world import voxel_map as vm
+    out = {}
+    for dt in (torch.float64, torch.float32):
+        fr = {d: _cam_frame(dt, d)[3]() for d in ("cpu", "cuda")}
+        (dg, sg, cg, mg), (dc, sc, cc, mc) = \
+            [[x.cpu() for x in fr[d]] for d in ("cuda", "cpu")]
+        fin = torch.isfinite(dc)
+        assert torch.equal(torch.isfinite(dg), fin)
+        name = str(dt).replace("torch.", "")
+        out[name] = {
+            "depth_max_abs_err": float((dg[fin] - dc[fin]).abs().max()),
+            "rgb_max_abs_err": float((cg - cc).abs().max()),
+            "sem_pixels_differing": int((sg != sc).sum()),
+            "mask_pixels_differing": int((mg != mc).any(0).sum()),
+            "mask_pixels": int(mc.sum())}
+    o64, o32 = out["float64"], out["float32"]
+    assert o64["sem_pixels_differing"] == 0 and \
+        o64["mask_pixels_differing"] == 0, o64
+    assert o64["depth_max_abs_err"] <= 1e-12 and \
+        o64["rgb_max_abs_err"] <= 1e-12, o64
+    assert o32["depth_max_abs_err"] <= 1e-5, o32
+    assert o32["sem_pixels_differing"] <= EDGE_PIXELS_F32 and \
+        o32["mask_pixels_differing"] <= EDGE_PIXELS_F32, o32
+    assert o64["mask_pixels"] > 100
+
+    maps = {}
+    for name, lower in (("aligned", (-1.0, -4.0, -1.0)),
+                        ("offset", (-1.05, -4.05, -1.1))):
+        for d in ("cpu", "cuda"):
+            cam, R, t, frame = _cam_frame(torch.float64, d)
+            depth = frame()[0]
+            pts = cmr.cloud_for_mapping(cam, R, t, depth, far=14.0)
+            st = vm.voxel_map_init((40, 40, 20), dtype=torch.float64,
+                                   device=d)
+            st = vm.insert_point_cloud(st, np.asarray(lower), 0.2, t, pts,
+                                       max_range=12.0)
+            dirs = torch.tensor([[1.0, 0.0, 0.0], [0.8, 0.6, 0.0],
+                                 [0.8, -0.6, 0.0], [0.0, -0.6, -0.8]],
+                                dtype=torch.float64)
+            rays = vm.cast_rays(st, np.asarray(lower), 0.2, t, dirs, 8.0)
+            maps[name, d] = [x.cpu() for x in (st.log_odds, st.known, *rays)]
+    # with the ground plane z = 0 on a voxel boundary, a ground hit's z
+    # (0 up to rounding) floors to either side on the two devices
+    out["aligned_voxels_differing"] = int(
+        (maps["aligned", "cuda"][0] != maps["aligned", "cpu"][0]).sum())
+    same_map = all(torch.equal(a, b) for a, b in zip(maps["offset", "cuda"],
+                                                     maps["offset", "cpu"]))
+    out["voxel_map_equal"] = same_map
+    out["voxels_known"] = int(maps["offset", "cpu"][1].sum())
+    out["rays_hit"] = maps["offset", "cpu"][2].tolist()
+    frame = _cam_frame(torch.float32, "cuda")[3]
+    for _ in range(5):
+        frame()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        frame()
+    torch.cuda.synchronize()
+    out["frame_ms"] = 1e3 * (time.perf_counter() - t0) / 50
+    out["frame_dispatched_ops"] = dispatched_ops(frame)
+    print("camera, card vs CPU: " + json.dumps(out), flush=True)
+    assert same_map and out["voxels_known"] > 100 and any(out["rays_hit"])
+    return out
+
+
+def camera_bus_mission_on_card(wfc):
+    """tests/test_camera_perception.py::test_bus_mission_on_vision_perception
+    on the card: `run_bus_mission(perception="camera")`, items (3, 0.5),
+    (3, -1) to targets (6, 1.5), (6, -1.5), the camera frames rendered on
+    the card; every object delivered, max final error < 0.35 m.  Host
+    wall time by phase (render, estimate, FSM, controller, host rest)."""
+    from alore_legged_manipulator_tpu_torch.runtime import bus_mission as bm
+    from alore_legged_manipulator_tpu_torch.runtime import (
+        camera_perception as cp)
+    from alore_legged_manipulator_tpu_torch.world import camera as cmr
+    clock = PhaseClock()
+    for owner, name, bucket in (
+            (cmr, "render", "render"), (cmr, "render_color", "render"),
+            (cmr, "color_class_masks", "render"),
+            (cp.CameraPerceptionNode, "_estimate_from_image", "estimate"),
+            (bm.MissionFsmNode, "tick", "fsm"),
+            (bm.ControllerNode, "tick", "controller")):
+        clock.wrap(owner, name, bucket)
+    wfc.reset_launches()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = bm.run_bus_mission(
+            items=[(3.0, 0.5, 0.0), (3.0, -1.0, 0.0)],
+            targets=[(6.0, 1.5, 0.0), (6.0, -1.5, 0.0)],
+            robot_start=(0.0, 0.0, 0.0), perception="camera")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        clock.restore()
+    launches = dict(wfc.LAUNCHES)
+    summary = {"delivered": rep.delivered, "ticks": rep.ticks,
+               "final_err_m": rep.final_err, "wall_s": wall,
+               "renders": clock.calls.get("render", 0) // 3,
+               "wall_by_phase_s": clock.report(wall),
+               "kernel_launches": launches}
+    print("bus mission on camera perception, on the card: "
+          + json.dumps(summary), flush=True)
+    assert all(rep.delivered) and max(rep.final_err) < 0.35, summary
+    return summary, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -1438,7 +1854,22 @@ def main() -> int:
     _phase("low-level WBC: card vs CPU")
     low_level_card_vs_cpu()
 
-    # ---- 9. result lines ----
+    # ---- 9. training and camera perception ----
+    _phase(f"training: PPO on the contact plant, B=1536 x 24 steps, "
+           f"{TRAIN_ITERS} iterations from the CSV's start")
+    wfc.reset_launches()
+    state, _, _ = training_on_card()
+    launches_train = dict(wfc.LAUNCHES)
+    print("training, dispatched operations: "
+          + json.dumps(train_dispatches(_train_cfg())), flush=True)
+    _phase("training: checkpoint round trip, one f64 update card vs CPU")
+    checkpoint_round_trip_on_card(state)
+    ppo_update_card_vs_cpu()
+    _phase("camera: card vs CPU, bus mission on camera perception")
+    camera_card_vs_cpu()
+    _, launches_cam = camera_bus_mission_on_card(wfc)
+
+    # ---- 10. result lines ----
     kern = []
     for name, replaces in (
             ("wavefront_packed",
@@ -1457,6 +1888,8 @@ def main() -> int:
             launches_planner_sim_nmpc=launches_ps_nmpc[name],
             launches_policy_eval=launches_eval[name],
             launches_bus_mission=launches_bus[name],
+            launches_training=launches_train[name],
+            launches_camera_mission=launches_cam[name],
             max_abs_err=max(m["max_abs_err"], m100[name]["max_abs_err"],
                             m64[name]["max_abs_err"]),
             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],

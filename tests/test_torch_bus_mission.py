@@ -9,8 +9,10 @@
 * The three nodes tick by tick: every `/env_obs`, `/env_control_data`,
   `/simulator/carstate` and arm-state message published on the port's
   bus equals the JAX bus's.
-* `perception="camera"` raises `ValueError` naming the modules it
-  needs (not ported yet).
+* `perception="camera"` runs on the port (it raised `ValueError` while
+  the camera modules were missing): a one-object mission on the CPU
+  gives the JAX package's tick count, flags and errors
+  (tests/test_torch_camera_perception.py holds the two-object one).
 """
 import numpy as np
 import pytest
@@ -72,6 +74,10 @@ def test_nodes_publish_the_same_messages():
 
 
 def test_camera_perception_is_not_ported_yet():
-    with pytest.raises(ValueError, match="camera_perception"):
-        tbm.run_bus_mission([(1.0, 0.0, 0.0)], [(2.0, 0.0, 0.0)],
-                            perception="camera")
+    kw = dict(items=[(3.0, 0.4, 0.0)], targets=[(5.0, 1.0, 0.0)],
+              perception="camera", seed=2)
+    ref = jbm.run_bus_mission(**kw)
+    got = tbm.run_bus_mission(**kw, device="cpu")
+    assert (got.ticks, got.delivered, got.final_err) == \
+        (ref.ticks, ref.delivered, ref.final_err)
+    assert all(got.delivered)

@@ -1,9 +1,10 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and
 its configs keep the JAX package's field names and defaults.
 
-* A fresh interpreter imports every module of the port and must find
-  none of `jax`, `flax`, `optax`, `orbax` and `alore_legged_manipulator_tpu`
-  in `sys.modules`.
+* A fresh interpreter imports every module of the port (the training
+  modules `rl/ppo.py`, `rl/runner.py`, `rl/registry.py` and the camera
+  path among them) and must find none of `jax`, `flax`, `optax`, `orbax`
+  and `alore_legged_manipulator_tpu` in `sys.modules`.
 * A scan of the port's sources finds no import of either.
 * Every config NamedTuple the port shares with the JAX package has the
   same fields with equal defaults (nested configs compared field by
@@ -56,7 +57,10 @@ def test_module_list_covers_the_slice():
               "rl.hierarchy", "rl.env_physics", "rl.eval",
               "runtime.contracts", "runtime.remote", "runtime.z1_arm",
               "runtime.deploy", "runtime.obs_assembly",
-              "runtime.bus_mission", "runtime.highlevel_controller"):
+              "runtime.bus_mission", "runtime.highlevel_controller",
+              "rl.ppo", "rl.runner", "rl.registry", "world.camera",
+              "world.voxel_map", "runtime.perception",
+              "runtime.camera_perception"):
         assert f"{port_pkg.__name__}.{m}" in mods
 
 
