@@ -8,7 +8,8 @@ nested tuples and configs are converted recursively, plain numbers stay
 as they are.  The dataclass configs (`PlanManagerConfig`, `FsmConfig`)
 are carried the same way, their dtype fields (`jnp.float32`, ...) mapped
 to the torch dtype of the same name.  A host dataclass (`E2EScenario`,
-whose grid stays a numpy array on the host) is copied field by field.
+whose grid stays a numpy array on the host; `ObstacleTerrainConfig`,
+`Scene`) is copied field by field.
 The port's class is found by the JAX class's name, so this module
 imports nothing of the JAX package.
 
@@ -94,6 +95,8 @@ _CLASSES = {
     "BoxScene": "world.camera",
     "VoxelMapConfig": "world.voxel_map",
     "VoxelMapState": "world.voxel_map",
+    "OctomapTree": "world.octomap_io",
+    "ScalingPoint": "parallel.scaling",
 }
 
 # dataclass configs: class name -> module of the port that defines it
@@ -106,6 +109,8 @@ DATACLASSES = {
 HOST_DATACLASSES = {
     "E2EScenario": "runtime.planner_sim",
     "DeployConfig": "runtime.deploy",
+    "ObstacleTerrainConfig": "world.scene",
+    "Scene": "world.scene",
 }
 
 

@@ -38,7 +38,11 @@ def _edt(source_mask, res, block: int = 256):
     f = torch.where(source_mask, torch.zeros_like(cap), cap)
     d1 = _sq_dist_transform_1d(f, block)
     d2 = _sq_dist_transform_1d(d1.transpose(-1, -2), block).transpose(-1, -2)
-    return res * torch.sqrt(torch.minimum(d2, cap))
+    # the square root in float64, rounded once to float32: the correctly
+    # rounded float32 root on every device (the card's float32 root was
+    # 1 ulp off in 16 cells of a 500x500 field; the squares are exact)
+    root = torch.sqrt(torch.minimum(d2, cap).to(torch.float64))
+    return res * root.to(torch.float32)
 
 
 class ESDF(NamedTuple):

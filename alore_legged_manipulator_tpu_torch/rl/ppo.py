@@ -24,6 +24,19 @@ runner), updated in place.  optax's chain becomes:
 Minibatches are slices of one permutation per epoch, drawn from a CPU
 `torch.Generator` or given (`perms`, (epochs, n)), so that a parity run
 can inject the JAX package's `jax.random.permutation` draws.
+
+Every reduction over the rollout is written as a sum and a division:
+the advantages are normalized with the mean and population standard
+deviation in two passes, and every loss term is a sum over the
+minibatch's entries divided by the minibatch size.  Data-parallel
+(`mesh`, a `parallel.Mesh`), each rank holds a contiguous block of the
+lanes and the same parameters and optimizer state, and the same update
+runs partitioned: the sums are all-reduced, each rank sums the
+minibatch entries in its block, and the gradients (with the loss terms,
+for the metrics and the KL that sets the lr) are summed over the ranks
+in one all-reduce before the clip.  The entropy of a per-parameter
+`std` is counted on rank 0 only.  No rank holds another's rollout; on
+one rank the update is the single device's to the last bit.
 """
 from __future__ import annotations
 
@@ -31,6 +44,7 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 LOG_2PI = math.log(2 * math.pi)
 ENTROPY_CONST = 0.5 * math.log(2 * math.pi * math.e)
@@ -121,7 +135,15 @@ def ppo_init(params, cfg: PpoConfig = PpoConfig()) -> PpoState:
     return PpoState(params=params, opt_state=opt, lr=float(cfg.lr))
 
 
-def _loss(params, flat, adv_f, ret_f, idx, apply_fn, cfg: PpoConfig):
+def _loss(params, flat, adv_f, ret_f, idx, apply_fn, cfg: PpoConfig,
+          denom: int, own_entropy: bool = True):
+    """The PPO loss over the entries `idx` of the flat rollout and its
+    terms.  Each term is a sum over `idx` divided by the `denom` entries
+    of the minibatch (on a mesh, `idx` is this rank's share of it); a
+    per-parameter entropy counts only where `own_entropy`."""
+    def mean_of(x):
+        return torch.sum(x) / (denom * math.prod(x.shape[1:]))
+
     mean, std, value, vel_est = apply_fn(
         params, flat.obs_hist[idx], flat.graph_nodes[idx],
         flat.graph_edges[idx], flat.critic_obs[idx])
@@ -131,18 +153,20 @@ def _loss(params, flat, adv_f, ret_f, idx, apply_fn, cfg: PpoConfig):
     a = adv_f[idx]
     surr = torch.minimum(ratio * a,
                          torch.clamp(ratio, 1 - cfg.clip, 1 + cfg.clip) * a)
-    policy_loss = -torch.mean(surr)
+    policy_loss = -mean_of(surr)
 
     v_old = flat.values[idx]
     ret = ret_f[idx]
     v_clip = v_old + torch.clamp(value - v_old, -cfg.value_clip,
                                  cfg.value_clip)
-    v_loss = torch.mean(torch.maximum((value - ret) ** 2,
-                                      (v_clip - ret) ** 2))
+    v_loss = mean_of(torch.maximum((value - ret) ** 2, (v_clip - ret) ** 2))
     ent = torch.sum(torch.log(std) + ENTROPY_CONST, dim=-1)
-    entropy = torch.mean(ent) if std.ndim else ent
-    est_loss = torch.mean((vel_est - flat.vel_targets[idx]) ** 2)
-    kl = torch.mean(old_logp - logp)
+    if ent.ndim:
+        entropy = mean_of(ent)
+    else:
+        entropy = ent if own_entropy else torch.zeros_like(ent)
+    est_loss = mean_of((vel_est - flat.vel_targets[idx]) ** 2)
+    kl = mean_of(old_logp - logp)
     total = (policy_loss + cfg.value_coef * v_loss
              - cfg.entropy_coef * entropy
              + cfg.estimator_coef * est_loss)
@@ -155,36 +179,69 @@ def draw_permutations(n: int, epochs: int, gen: torch.Generator):
                         for _ in range(epochs)])
 
 
+def _all_sum(mesh, x):
+    """x summed over the mesh's ranks, in place (no mesh: x)."""
+    if mesh is not None:
+        dist.all_reduce(x, group=mesh.group)
+    return x
+
+
+def _minibatches(perms, mb: int, k_count: int, S: int, B: int, rank: int,
+                 size: int, dev):
+    """Per epoch, the entries of each minibatch of `perms` (epochs, n) of
+    the global flat rollout (S steps x B * size lanes) that lie in rank
+    `rank`'s block of B lanes, as indices into its local flat rollout
+    (S * B), in the permutation's order."""
+    perms = torch.as_tensor(perms).to(torch.long).cpu()
+    lane, step = perms % (B * size), perms // (B * size)
+    mine = lane // B == rank
+    local = step * B + lane - rank * B
+    return [[local[e, k * mb:(k + 1) * mb][mine[e, k * mb:(k + 1) * mb]]
+             .to(dev) for k in range(k_count)]
+            for e in range(perms.shape[0])]
+
+
 def ppo_update(state: PpoState, rollout: Rollout, last_value, apply_fn,
                cfg: PpoConfig = PpoConfig(), gen: torch.Generator = None,
-               perms=None):
+               perms=None, mesh=None):
     """One PPO learning phase over a rollout, on the rollout's device.
 
     apply_fn(params, obs_hist, nodes, edges, critic_obs) ->
       (mean, std, value, vel_est).
-    perms: optional (epochs, S*B) permutations; else drawn from `gen`
-    (None: a generator seeded 0).
-    Returns (new_state, metrics dict of 0-d tensors); the modules of
-    `state.params` and the optimizer are updated in place.
+    perms: optional (epochs, n) permutations of the global flat rollout
+    (n = S * B * mesh size); else drawn from `gen` (None: a generator
+    seeded 0).  mesh: optional `parallel.Mesh`; `rollout` is then this
+    rank's block of lanes (module docstring).
+    Returns (new_state, metrics dict of 0-d tensors, the same on every
+    rank); the modules of `state.params` and the optimizer are updated
+    in place.
     """
     S, B = rollout.rewards.shape
     dev = rollout.rewards.device
+    rank, size = (0, 1) if mesh is None else (mesh.rank, mesh.size)
+    n = S * B * size
     with torch.no_grad():
         adv, returns = compute_gae(rollout.rewards, rollout.values,
                                    rollout.dones, last_value,
                                    cfg.gamma, cfg.lam)
-        adv_n = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+        # the global mean and population std, in two passes
+        sums = _all_sum(mesh, torch.stack(
+            [adv.sum(), rollout.rewards.sum().to(adv.dtype)]))
+        mu = sums[0] / n
+        var = _all_sum(mesh, torch.sum((adv - mu) ** 2)) / n
+        adv_n = (adv - mu) / (torch.sqrt(var) + 1e-8)
+        mean_reward = sums[1] / n
     flat = Rollout(*(x.reshape((S * B,) + x.shape[2:]) for x in rollout))
     adv_f = adv_n.reshape(-1)
     ret_f = returns.reshape(-1)
 
-    n = S * B
     mb = n // cfg.minibatches
     if perms is None:
         perms = draw_permutations(
             n, cfg.epochs, gen if gen is not None
             else torch.Generator().manual_seed(0))
-    perms = torch.as_tensor(perms).to(device=dev, dtype=torch.long)
+    batches = _minibatches(perms, mb, cfg.minibatches, S, B, rank, size,
+                           dev)
 
     opt = state.opt_state
     params = trainable_parameters(state.params)
@@ -195,16 +252,18 @@ def ppo_update(state: PpoState, rollout: Rollout, last_value, apply_fn,
             group["lr"] = lr
         kl_sum = 0.0
         for k in range(cfg.minibatches):
-            idx = perms[e, k * mb:(k + 1) * mb]
             opt.zero_grad(set_to_none=True)
-            total, aux = _loss(state.params, flat, adv_f, ret_f, idx,
-                               apply_fn, cfg)
+            total, aux = _loss(state.params, flat, adv_f, ret_f,
+                               batches[e][k], apply_fn, cfg, mb,
+                               own_entropy=rank == 0)
             total.backward()
+            aux = torch.stack([x.detach() for x in aux])
             with torch.no_grad():
+                if mesh is not None:
+                    aux = _reduce_grads(mesh, params, aux)
                 clip_by_global_norm_([p.grad for p in params],
                                      cfg.max_grad_norm)
             opt.step()
-            aux = torch.stack([x.detach() for x in aux])
             auxs.append(aux)
             kl_sum = kl_sum + aux[3]
         # adaptive LR on mean KL (rsl_rl schedule)
@@ -221,6 +280,23 @@ def ppo_update(state: PpoState, rollout: Rollout, last_value, apply_fn,
         "estimator_loss": m[2],
         "kl": m[3],
         "lr": torch.tensor(lr, dtype=torch.float64),
-        "mean_reward": torch.mean(rollout.rewards),
+        "mean_reward": mean_reward,
     }
     return PpoState(params=state.params, opt_state=opt, lr=lr), metrics
+
+
+def _reduce_grads(mesh, params, aux):
+    """Sum every parameter's gradient and the loss terms `aux` over the
+    ranks in one all-reduce; the gradients are replaced in place.
+    Returns the summed terms."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    buf = torch.cat([p.grad.reshape(-1) for p in params]
+                    + [aux.to(params[0].dtype)])
+    _all_sum(mesh, buf)
+    off = 0
+    for p in params:
+        p.grad.copy_(buf[off:off + p.numel()].view_as(p))
+        off += p.numel()
+    return buf[off:].to(aux.dtype)

@@ -30,9 +30,17 @@ replaces to inject the JAX package's draws.
 
 Checkpoints are the port's own: `step_<n>.npz` of the `{"actor",
 "critic"}` parameter trees under the flax names (the format of
-`models/weights/*.npz`).  The data-parallel `mesh` of the JAX runner
-needs `parallel/`, which the port does not have yet: `train(mesh=...)`
-raises `ValueError`.
+`models/weights/*.npz`).
+
+Data-parallel training (`train(mesh=...)`, a `parallel.Mesh`, the
+reference runner's multi-GPU hooks, on_policy_runner_physic.py:509+):
+each rank steps its contiguous block of `num_envs / size` lanes, the
+parameters and Adam state are replicated (broadcast from rank 0 once),
+and `ppo_update` sums the gradients over the ranks.  The result is the
+single-device run, partitioned: the randomness follows the global lane
+(`ShardedDraws`), so every rank's generators stay in lockstep with the
+single device's, and the minibatch order is the same on every rank.
+Only rank 0 writes checkpoints.
 """
 from __future__ import annotations
 
@@ -48,6 +56,7 @@ from ..models.actor_critic import Critic, PhysicActorCritic
 from ..models.gnn import GraphBatch, build_interaction_graph
 from ..models.torch_convert import (flax_from_state_dict, load_flax_npz,
                                     save_flax_npz, state_dict_from_flax)
+from ..parallel.mesh import block, gather_scenarios, shard_scenarios
 from ..utils.precision import resolve_device, set_precision_policy
 from .env import (PushEnvConfig, critic_observation, env_reset, env_step,
                   graph_features)
@@ -244,6 +253,42 @@ class Draws:
         return put_lanes(states, idx, self.env.reset(self.gen, idx.numel()))
 
 
+class ShardedDraws(Draws):
+    """The draws of one rank of a mesh, in lockstep with the single
+    device's: the global action noise drawn and this rank's block kept;
+    the done mask all-gathered, fresh episodes drawn for every done lane
+    of the global batch in its order, and this rank's kept."""
+
+    def __init__(self, env: EnvFns, gen: torch.Generator,
+                 dev_gen: torch.Generator, mesh):
+        super().__init__(env, gen, dev_gen)
+        self.mesh = mesh
+
+    def noise(self, k: int, mean):
+        n = mean.shape[0] * self.mesh.size
+        full = torch.randn((n,) + mean.shape[1:], generator=self.dev_gen,
+                           dtype=mean.dtype, device=mean.device)
+        return full[block(self.mesh, n)]
+
+    def reset_done(self, k: int, states, done):
+        idx = torch.nonzero(gather_scenarios(self.mesh, done))[:, 0]
+        if idx.numel() == 0:
+            return states
+        fresh = self.env.reset(self.gen, idx.numel())
+        lo = self.mesh.rank * done.shape[0]
+        sel = torch.nonzero((idx >= lo) & (idx < lo + done.shape[0]))[:, 0]
+        return put_lanes(states, idx[sel] - lo,
+                         _tree_map(lambda x: x[sel.to(x.device)], fresh))
+
+
+def _replicate(mesh, params):
+    """Rank 0's parameters on every rank of the mesh."""
+    with torch.no_grad():
+        for m in params.values():
+            for t in m.state_dict().values():
+                torch.distributed.broadcast(t, src=0, group=mesh.group)
+
+
 def collect(params, env: EnvFns, env_states, cfg: TrainConfig,
             draws: Draws):
     """`cfg.steps_per_env` stochastic steps of every lane.  Returns
@@ -284,15 +329,17 @@ def train(cfg: TrainConfig = TrainConfig(), progress=None, mesh=None,
     None: `init_models(cfg)`.  timings: optional list that receives,
     per iteration, the wall seconds of the collection and of the update
     (each ended by a device synchronize).
-    mesh: data-parallel training needs `parallel/`, not ported yet: a
-    mesh raises ValueError.
+    mesh: optional `parallel.Mesh` (every rank calls `train`):
+    data-parallel training over its ranks on `mesh.device` (module
+    docstring); `num_envs` must divide over them.  The returned state and
+    history are the same on every rank.
     """
-    if mesh is not None:
-        raise ValueError(
-            "train(mesh=...) needs the data-parallel layer parallel/ "
-            "(mesh.py, scaling.py), which the port does not have yet; "
-            "train on one device with mesh=None")
     assert cfg.num_envs % 3 == 0, "num_envs must be a multiple of 3"
+    if mesh is not None:
+        if cfg.num_envs % mesh.size:
+            raise ValueError(f"num_envs {cfg.num_envs} must divide evenly "
+                             f"over the mesh's {mesh.size} ranks")
+        device = mesh.device
     if models is None:
         models, _ = init_models(cfg, device=device)
     p = next(models.actor.parameters())
@@ -304,7 +351,12 @@ def train(cfg: TrainConfig = TrainConfig(), progress=None, mesh=None,
     dev_gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
     env = make_env(cfg, dtype, dev)
     env_states = env.reset(gen, cfg.num_envs)
-    draws = Draws(env, gen, dev_gen)
+    if mesh is None:
+        draws = Draws(env, gen, dev_gen)
+    else:
+        _replicate(mesh, params)
+        env_states = shard_scenarios(mesh, env_states)
+        draws = ShardedDraws(env, gen, dev_gen, mesh)
 
     def sync():
         if dev.type == "cuda":
@@ -318,14 +370,16 @@ def train(cfg: TrainConfig = TrainConfig(), progress=None, mesh=None,
         sync()
         t1 = time.perf_counter()
         ppo_state, metrics = ppo_update(ppo_state, rollout, last_value,
-                                        _apply_all, cfg.ppo, gen=gen)
+                                        _apply_all, cfg.ppo, gen=gen,
+                                        mesh=mesh)
         history.append({k: float(v) for k, v in metrics.items()})
         t2 = time.perf_counter()
         if timings is not None:
             timings.append((t1 - t0, t2 - t1))
         if progress is not None:
             progress(it, history[-1])
-        if cfg.checkpoint_dir and (it + 1) % cfg.checkpoint_every == 0:
+        if (cfg.checkpoint_dir and (it + 1) % cfg.checkpoint_every == 0
+                and (mesh is None or mesh.rank == 0)):
             save_checkpoint(cfg.checkpoint_dir, ppo_state, it + 1)
 
     return ppo_state, history

@@ -100,11 +100,27 @@ since the script started:
    camera's frame card vs CPU and the depth cloud into the voxel map;
    the bus mission on camera perception (every object delivered within
    0.35 m, wall by phase).  `train_camera_probe()` runs these alone.
-10. The `kernels` JSON line (with K1 and K2's launches on each path, 0
+10. The data-parallel layer on a one-rank NCCL mesh (`make_mesh(1)`;
+   NCCL, never gloo): the N=50 tracking tick at B=256 sharded against
+   the same tick unsharded with the same injected plant noise (equal;
+   no collective in the tick, one all-reduce in the fleet reduction),
+   the contact env step at B=64, tests/test_parallel.py's B=16 mission
+   fleet sharded (K1 counted) against the same fleet unsharded in a
+   process of its own beside it, at that test's tolerances, and
+   `train(mesh=...)` for 2 iterations against the training phase's
+   first two (test_train_sharded.py's f32 tolerances); one tick traced
+   by `device_trace` (kernels, device-busy share).  Then the last
+   modules: the septic MINCO card vs CPU at f64 and against the
+   oracle's goldens, `max_rates` of the known-map push's plan card vs
+   CPU, `make_scene("dense")` at 500x500 (card ESDF equal to the CPU's,
+   a JPS path from the clear center), the camera phase's voxel map
+   through .bt and .ot files, and the native bus against the Python one
+   (round trip p50 / p99, host clock).  `mesh_probe()` runs it alone.
+11. The `kernels` JSON line (with K1 and K2's launches on each path, 0
    on the planner simulation, the mapped mission, the served policy,
-   training and the camera mission, whose paths hold no wavefront), the
-   script's wall time, and as the last line {"ok": true, "device":
-   {...}}.
+   training and the camera mission, whose paths hold no wavefront; K1
+   once on the mesh mission), the script's wall time, and as the last
+   line {"ok": true, "device": {...}}.
 
 Fails (non-zero exit, no result line) without a CUDA card or without the
 package beside it.  Imports nothing of JAX.
@@ -698,7 +714,7 @@ def known_map_push_on_card(wfc, push_s=KNOWN_MAP_PUSH_S):
     assert summary["push_tracking_err_p95"] < 0.25, summary
     assert summary["object_moved_m"] > 0.1 * push_s, summary
     assert bool(torch.isfinite(res.obj_xytheta).all())
-    return summary, launches
+    return summary, launches, man.tracked.traj
 
 
 def arrangement_on_card(wfc):
@@ -1346,15 +1362,22 @@ def training_on_card(seed=0, check=True):
     its lr 1e-3 / 1.5**5 to 1e-9 relative; the mean reward of iterations
     0 and 9 inside REWARD_BANDS around the CSV's, iteration 9's above
     iteration 0's; the estimator loss within 3x of the CSV's row.
-    Returns (ppo_state, history, summary)."""
+    Returns (ppo_state, history, summary, the state_dicts of the actor
+    and the critic after iteration 1)."""
     from alore_legged_manipulator_tpu_torch.rl.runner import train
     cfg = _train_cfg(seed=seed)
     csv_rows = _csv_rows(TRAIN_ITERS)
     keys = ("mean_reward", "estimator_loss", "kl", "lr", "policy_loss",
             "value_loss")
     timings = []
+    after_two = {}
 
     def progress(it, m):
+        if it == 1:
+            after_two.update({k: {n: v.clone() for n, v in
+                                  mod.state_dict().items()}
+                              for k, mod in zip(("actor", "critic"),
+                                                models)})
         c, u = timings[-1]
         print(f"iter {it}: port " + json.dumps({k: m[k] for k in keys})
               + " | csv " + json.dumps({k: csv_rows[it][k] for k in keys})
@@ -1392,7 +1415,7 @@ def training_on_card(seed=0, check=True):
         for h, c in zip(hist, csv_rows):
             e, ce = h["estimator_loss"], c["estimator_loss"]
             assert ce / 3 <= e <= 3 * ce, (e, ce)
-    return state, hist, summary
+    return state, hist, summary, after_two
 
 
 def training_bands():
@@ -1411,7 +1434,7 @@ def training_bands():
     csv_rows = _csv_rows(TRAIN_ITERS)
     seen = {it: [] for it in REWARD_BANDS}
     for seed in (1, 2, 3):
-        _, hist, _ = training_on_card(seed=seed, check=False)
+        _, hist, _, _ = training_on_card(seed=seed, check=False)
         for it in seen:
             seen[it].append(hist[it]["mean_reward"])
     out = {}
@@ -1433,7 +1456,7 @@ def train_camera_probe():
     from alore_legged_manipulator_tpu_torch.ops import wavefront_cuda as wfc
     bands = training_bands()
     REWARD_BANDS.update({it: tuple(b["band"]) for it, b in bands.items()})
-    state, _, _ = training_on_card()
+    state, _, _, _ = training_on_card()
     print("training, dispatched operations: "
           + json.dumps(train_dispatches(_train_cfg())), flush=True)
     checkpoint_round_trip_on_card(state)
@@ -1557,7 +1580,8 @@ def camera_card_vs_cpu():
     ground plane (on one whose boundary holds it, the ground hits' z, 0
     up to rounding, may floor to either side: the differing voxels are
     printed).  Also the time and dispatched operations of one f32 frame
-    (render, color, masks) on the card."""
+    (render, color, masks) on the card.  Returns the summary and the
+    card's map (the offset one: state, lower, resolution)."""
     from alore_legged_manipulator_tpu_torch.world import camera as cmr
     from alore_legged_manipulator_tpu_torch.world import voxel_map as vm
     out = {}
@@ -1584,7 +1608,7 @@ def camera_card_vs_cpu():
         o32["mask_pixels_differing"] <= EDGE_PIXELS_F32, o32
     assert o64["mask_pixels"] > 100
 
-    maps = {}
+    maps, card_map = {}, None
     for name, lower in (("aligned", (-1.0, -4.0, -1.0)),
                         ("offset", (-1.05, -4.05, -1.1))):
         for d in ("cpu", "cuda"):
@@ -1600,6 +1624,8 @@ def camera_card_vs_cpu():
                                 dtype=torch.float64)
             rays = vm.cast_rays(st, np.asarray(lower), 0.2, t, dirs, 8.0)
             maps[name, d] = [x.cpu() for x in (st.log_odds, st.known, *rays)]
+            if name == "offset" and d == "cuda":
+                card_map = (st, np.asarray(lower), 0.2)
     # with the ground plane z = 0 on a voxel boundary, a ground hit's z
     # (0 up to rounding) floors to either side on the two devices
     out["aligned_voxels_differing"] = int(
@@ -1621,7 +1647,7 @@ def camera_card_vs_cpu():
     out["frame_dispatched_ops"] = dispatched_ops(frame)
     print("camera, card vs CPU: " + json.dumps(out), flush=True)
     assert same_map and out["voxels_known"] > 100 and any(out["rays_hit"])
-    return out
+    return out, card_map
 
 
 def camera_bus_mission_on_card(wfc):
@@ -1664,6 +1690,479 @@ def camera_bus_mission_on_card(wfc):
           + json.dumps(summary), flush=True)
     assert all(rep.delivered) and max(rep.final_err) < 0.35, summary
     return summary, launches
+
+# ---------------------------------------------------------------------------
+# 10. the data-parallel layer on a one-rank NCCL mesh, and the last modules
+# ---------------------------------------------------------------------------
+
+MINCO_S4_GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests", "golden", "minco_s4_oracle",
+                                "goldens.txt")
+MINCO_S4_WEIGHTS = (0.7, 1.3)
+
+
+def _count_collectives(fn):
+    """fn() with every torch.distributed collective counted: (result,
+    {name: calls})."""
+    import torch.distributed as dist
+    counts, saved = {}, {}
+    for name in ("all_reduce", "all_gather", "all_gather_into_tensor",
+                 "broadcast", "reduce", "reduce_scatter",
+                 "reduce_scatter_tensor", "all_to_all", "all_to_all_single",
+                 "gather", "scatter", "barrier", "send", "recv"):
+        f = getattr(dist, name, None)
+        if f is None:
+            continue
+        saved[name] = f
+
+        def wrapped(*a, _f=f, _n=name, **kw):
+            counts[_n] = counts.get(_n, 0) + 1
+            return _f(*a, **kw)
+        setattr(dist, name, wrapped)
+    try:
+        return fn(), counts
+    finally:
+        for name, f in saved.items():
+            setattr(dist, name, f)
+
+
+def _max_gap(a, b):
+    from alore_legged_manipulator_tpu_torch.parallel.mesh import tree_map
+    xs, ys = [], []
+    tree_map(xs.append, a)
+    tree_map(ys.append, b)
+    return max(float((x.double() - y.double()).abs().max())
+               for x, y in zip(xs, ys))
+
+
+def mesh_tick_and_env(mesh):
+    """The dry run's tracking tick (N=50) at B=256 on the mesh against the
+    same tick unsharded with the same injected plant noise (both
+    gathered), counting its collectives (none allowed); the contact env
+    step at B=64 on the mesh; then one device_trace around one tick: its
+    kernel count and the device-busy share of the traced window."""
+    from alore_legged_manipulator_tpu_torch.control.nmpc import NmpcConfig
+    from alore_legged_manipulator_tpu_torch.parallel import dryrun
+    from alore_legged_manipulator_tpu_torch.parallel import mesh as pm
+    from alore_legged_manipulator_tpu_torch.parallel.scaling import (
+        make_fleet)
+    from alore_legged_manipulator_tpu_torch.utils.profiling import (
+        device_trace, trace_summary)
+    B = 256
+    noise = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (B, 5, 2)), dtype=torch.float32)
+    (out_sh, mean_cmd), counts = _count_collectives(
+        lambda: dryrun.tick_program(mesh, B, noise=noise))
+    cfg = NmpcConfig()
+    step = pm.batched_tracking_step(dryrun.dryrun_traj(), dryrun.ICR,
+                                    nmpc_cfg=cfg)
+    state = tuple(pm.tree_map(lambda x: x.cuda(), make_fleet(B, cfg)[:4]))
+    out_one, tick_coll = _count_collectives(
+        lambda: step(*state, noise.cuda(), 0.0))
+    gap = _max_gap(pm.gather_scenarios(mesh, out_sh), out_one[:4])
+    r, mean_r = dryrun.env_program(mesh, 64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(*state, noise.cuda(), 0.0)
+    torch.cuda.synchronize()
+    untraced_s = time.perf_counter() - t0
+    log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke_trace")
+    t0 = time.perf_counter()
+    with device_trace(log_dir):
+        step(*state, noise.cuda(), 0.0)
+        torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t0
+    tr = trace_summary(os.path.join(log_dir, "trace.json"))
+    summary = {"tick_batch": B, "horizon": cfg.horizon,
+               "tick_sharded_vs_unsharded_max_abs_err": gap,
+               "tick_collectives_sharded": counts, "mean_abs_cmd": mean_cmd,
+               "tick_collectives_unsharded": tick_coll,
+               "env_batch": 64, "env_mean_reward": mean_r,
+               "traced_tick": tr, "traced_tick_host_s": traced_s,
+               "untraced_tick_host_s": untraced_s,
+               "device_busy_share_of_untraced_tick":
+                   tr["device_busy_us"] * 1e-6 / untraced_s}
+    print("mesh: tracking tick and env step: " + json.dumps(summary),
+          flush=True)
+    # the tick's only collective is the fleet reduction of its commands
+    assert counts == {"all_reduce": 1} and tick_coll == {}, summary
+    assert gap <= 1e-6, summary
+    assert np.isfinite(mean_r) and r.shape == (64,), summary
+    assert 0.0 <= tr["busy_share"] <= 1.0, tr
+    return summary
+
+
+def _mesh_mission_fleet():
+    """tests/test_parallel.py::test_sharded_mission_fleet_matches_single_
+    device's fleet (B=16 one-object missions on its 40x40 map, approach
+    30 / push 40 ticks), with the production profile's compact solver
+    direction: (items, targets, robots, esdf, icr, cfg)."""
+    from alore_legged_manipulator_tpu_torch.core.dynamics import ICRParams
+    from alore_legged_manipulator_tpu_torch.parallel.dryrun import plan_esdf
+    from alore_legged_manipulator_tpu_torch.planner.backend import (
+        BackendConfig)
+    from alore_legged_manipulator_tpu_torch.runtime import mission_fleet as mf
+    B = 16
+    cfg = mf.MissionFleetConfig(
+        backend=BackendConfig(solver_direction="compact"), n_pieces=3,
+        approach_ticks=30, grasp_ticks=2, release_ticks=2, push_ticks=40,
+        correction_ticks=0)
+    rng = np.random.default_rng(3)
+    items = torch.as_tensor(rng.uniform(0.9, 1.1, (B, 1, 2)),
+                            dtype=torch.float32)
+    targets = torch.as_tensor(rng.uniform([2.5, 1.1], [2.7, 1.3], (B, 1, 2)),
+                              dtype=torch.float32)
+    robots = torch.tensor([0.5, 0.5, 0.0]).expand(B, 3).clone()
+    return (items, targets, robots, plan_esdf("cuda"),
+            ICRParams(yr=-0.3, yl=0.3, xv=0.2), cfg)
+
+
+def unsharded_mission_child(out_path):
+    """Phase 10's reference, run in a process of its own beside the
+    sharded fleet: the mesh mission's fleet unsharded on the card, its
+    outcomes and wall time written to `out_path` (.npz)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from alore_legged_manipulator_tpu_torch.runtime import mission_fleet as mf
+    from alore_legged_manipulator_tpu_torch.utils.precision import (
+        set_precision_policy)
+    set_precision_policy()
+    fleet = _mesh_mission_fleet()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = mf.run_mission(*fleet)
+    torch.cuda.synchronize()
+    np.savez(out_path, wall_s=time.perf_counter() - t0,
+             **{k: getattr(res, k).cpu().numpy()
+                for k in ("object_err", "delivered", "track_err_max")})
+
+
+def start_unsharded_mission():
+    """Starts `unsharded_mission_child` in a new process; returns (the
+    process, its output path, its log path)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "build", "chip_smoke_unsharded_mission.npz")
+    log = out[:-4] + ".log"
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    for p in (out, log):
+        if os.path.exists(p):
+            os.remove(p)
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; "
+             f"chip_smoke.unsharded_mission_child({out!r})"],
+            cwd=root, stdout=f, stderr=subprocess.STDOUT)
+    return proc, out, log
+
+
+def mesh_mission(mesh, wfc, child):
+    """The mesh mission's fleet (`_mesh_mission_fleet`) on the mesh, its
+    K1 launches counted, against the same fleet unsharded on the card in
+    the process `child` (`start_unsharded_mission`, started at the
+    phase's start so that the two run side by side: two B=16 runs one
+    after the other take about a minute on an H100, PERF.md §6), at that
+    test's tolerances."""
+    from alore_legged_manipulator_tpu_torch.parallel import mesh as pm
+    from alore_legged_manipulator_tpu_torch.runtime import mission_fleet as mf
+    items, targets, robots, esdf, icr, cfg = _mesh_mission_fleet()
+    wfc.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sh = mf.run_mission(*pm.shard_scenarios(mesh, (items, targets, robots)),
+                        esdf, icr, cfg, device=mesh.device)
+    sh = pm.gather_scenarios(mesh, sh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(wfc.LAUNCHES)
+    proc, out, log = child
+    try:
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        with open(log) as f:
+            raise RuntimeError(f"the unsharded mission failed "
+                               f"({proc.returncode}):\n{f.read()}")
+    one = np.load(out)
+    e_sh, e_one = sh.object_err.cpu().numpy(), one["object_err"]
+    t_sh, t_one = sh.track_err_max.cpu().numpy(), one["track_err_max"]
+    summary = {"lanes": items.shape[0], "solver_direction": "compact",
+               "wall_s": wall, "wall_unsharded_s": float(one["wall_s"]),
+               "kernel_launches": launches,
+               "object_err_max_gap": float(np.abs(e_sh - e_one).max()),
+               "track_err_max_gap": float(np.abs(t_sh - t_one).max()),
+               "delivered": int(sh.delivered.sum())}
+    print("mesh: mission fleet, sharded vs unsharded (beside it, in a "
+          "process of its own): " + json.dumps(summary), flush=True)
+    assert launches["wavefront_packed"] == 1, launches
+    np.testing.assert_allclose(e_sh, e_one, atol=0.05)
+    assert np.array_equal(sh.delivered.cpu().numpy(), one["delivered"])
+    np.testing.assert_allclose(t_sh, t_one, rtol=0.5, atol=0.05)
+    return summary, launches
+
+
+def mesh_training(mesh, hist_ref, params_ref):
+    """`train(cfg, mesh=mesh)` for 2 iterations from the seed-0 initial
+    parameters at B=1536 against the first two iterations of the
+    single-device seed-0 run: history rtol 5e-4 / atol 1e-6, parameters
+    rtol 1e-3 / atol 1e-5 (tests/test_train_sharded.py's f32
+    tolerances)."""
+    from alore_legged_manipulator_tpu_torch.rl.runner import train
+    models = _init_models()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, hist = train(_train_cfg(iterations=2), mesh=mesh, models=models)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    worst = {"hist": 0.0, "params": 0.0}
+    for h, r in zip(hist, hist_ref[:2]):
+        for k in r:
+            np.testing.assert_allclose(h[k], r[k], rtol=5e-4, atol=1e-6,
+                                       err_msg=k)
+            worst["hist"] = max(worst["hist"],
+                                abs(h[k] - r[k]) / max(abs(r[k]), 1e-12))
+    for name, mod in zip(("actor", "critic"), models):
+        for n, v in mod.state_dict().items():
+            ref = params_ref[name][n]
+            torch.testing.assert_close(v, ref, rtol=1e-3, atol=1e-5,
+                                       msg=f"{name}.{n}")
+            worst["params"] = max(worst["params"],
+                                  float((v - ref).abs().max()))
+    summary = {"iterations": 2, "num_envs": 1536, "wall_s": wall,
+               "max_rel_err_history": worst["hist"],
+               "max_abs_err_params": worst["params"],
+               "rewards": [h["mean_reward"] for h in hist]}
+    print("mesh: training vs the single-device seed-0 run: "
+          + json.dumps(summary), flush=True)
+    return summary
+
+
+def _minco_s4_goldens():
+    """The oracle's cases and their inputs (tests/test_minco_s4.py's LCG)."""
+    cases, cur = [], None
+    with open(MINCO_S4_GOLDENS) as f:
+        for ln in f.read().splitlines():
+            p = ln.split()
+            if p[0] == "CASE":
+                cur = {"n": int(p[1])}
+                cases.append(cur)
+            elif p[0] == "C":
+                cur["coeffs"] = np.array(p[1:], float).reshape(cur["n"], 8, 2)
+            elif p[0] == "E":
+                cur["energy"] = float(p[1])
+            elif p[0] == "GP":
+                cur["gp"] = np.array(p[1:], float).reshape(-1, 2).T
+            elif p[0] == "GT":
+                cur["gt"] = np.array(p[1:], float)
+    state = [12345.0]
+
+    def rnd():
+        state[0] = np.fmod(state[0] * 1103515245.0 + 12345.0, 2147483648.0)
+        return state[0] / 1073741824.0 - 1.0
+    inputs = []
+    for c in cases:
+        n = c["n"]
+        head, tail = np.zeros((2, 4)), np.zeros((2, 4))
+        for d in range(2):
+            for o in range(4):
+                head[d, o] = rnd()
+                tail[d, o] = rnd()
+        inner = np.zeros((2, n - 1))
+        for i in range(n - 1):
+            inner[0, i] = rnd()
+            inner[1, i] = rnd()
+        ts = np.array([0.5 + 0.5 * (rnd() + 1.0) for _ in range(n)])
+        inputs.append((head, tail, inner, ts))
+    return cases, inputs
+
+
+def last_modules_on_card(push_plan, card_map):
+    """The last modules of the port on the card: the septic MINCO at f64
+    card vs CPU (1e-9 of each quantity's largest magnitude) and against
+    the compiled reference's goldens; `max_rates`
+    of the known-map push's plan card vs CPU (f64, 1e-9); the "dense"
+    scene at its full 500x500: card ESDF equal to the CPU's bit for bit,
+    a JPS path from the clear center to a free cell 10-25 m out; the
+    camera phase's voxel map through .bt and .ot files and back; the
+    native UDP bus
+    against the Python one in this process, the obs contract's round
+    trip p50 / p99 (host clock)."""
+    from alore_legged_manipulator_tpu_torch.ops import roots
+    from alore_legged_manipulator_tpu_torch.ops.esdf import (
+        esdf_from_occupancy)
+    from alore_legged_manipulator_tpu_torch.planner import frontend
+    from alore_legged_manipulator_tpu_torch.runtime.contracts import EnvObs
+    from alore_legged_manipulator_tpu_torch.runtime.native_transport import (
+        NativeUdpBus)
+    from alore_legged_manipulator_tpu_torch.runtime.transport import UdpBus
+    from alore_legged_manipulator_tpu_torch.solvers import minco_s4
+    from alore_legged_manipulator_tpu_torch.world import octomap_io, scene
+    from alore_legged_manipulator_tpu_torch.world import voxel_map as vm
+    out = {}
+    # septic MINCO, f64
+    cases, inputs = _minco_s4_goldens()
+    gaps = {"card_vs_cpu_rel": 0.0, "vs_goldens_rel": 0.0}
+    for case, inp in zip(cases, inputs):
+        res = {}
+        for d in ("cpu", "cuda"):
+            h, t, inn, ts = [torch.tensor(x, dtype=torch.float64,
+                                          device=d)[None] for x in inp]
+            c = minco_s4.minco_s4_coeffs(h, t, inn, ts)
+            e = minco_s4.minco_s4_energy(c, ts, MINCO_S4_WEIGHTS)
+            gp, gt = minco_s4.minco_s4_energy_grads(h, t, inn, ts,
+                                                    MINCO_S4_WEIGHTS)
+            res[d] = [x[0].cpu().numpy() for x in (c, e, gp, gt)]
+        for a, b in zip(res["cuda"], res["cpu"]):
+            gaps["card_vs_cpu_rel"] = max(
+                gaps["card_vs_cpu_rel"],
+                float(np.abs(a - b).max() / max(np.abs(b).max(), 1.0)))
+        c, e, gp, gt = res["cuda"]
+        np.testing.assert_allclose(c, case["coeffs"], rtol=1e-9, atol=1e-9)
+        assert abs(float(e) - case["energy"]) < \
+            1e-7 * max(1.0, case["energy"])
+        np.testing.assert_allclose(gp, case["gp"], rtol=1e-7)
+        np.testing.assert_allclose(gt, case["gt"], rtol=1e-7)
+        gaps["vs_goldens_rel"] = max(gaps["vs_goldens_rel"], float(
+            np.max(np.abs(gt - case["gt"]) / np.abs(case["gt"]))))
+    out["minco_s4_f64"] = gaps
+    assert gaps["card_vs_cpu_rel"] <= 1e-9, gaps
+    # max_rates of a back-end plan
+    rates = {}
+    for d in ("cpu", "cuda"):
+        rates[d] = torch.stack(roots.max_rates(
+            push_plan.coeffs.to(d, torch.float64),
+            push_plan.times.to(d, torch.float64)), -1).cpu().numpy()
+    out["max_rates"] = rates["cuda"].tolist()
+    out["max_rates_card_vs_cpu"] = float(np.abs(rates["cuda"]
+                                                - rates["cpu"]).max())
+    assert out["max_rates_card_vs_cpu"] <= 1e-9 * max(
+        1.0, float(np.abs(rates["cpu"]).max())), out
+    assert np.all(np.isfinite(rates["cuda"])) and np.all(
+        rates["cuda"][:, 1] > 0), out["max_rates"]
+    # the dense scene at its full size
+    t0 = time.perf_counter()
+    sc = scene.make_scene("dense", seed=0)
+    dist = {d: esdf_from_occupancy(torch.as_tensor(sc.occupancy, device=d),
+                                   torch.zeros(2), sc.res).dist.cpu()
+            for d in ("cpu", "cuda")}
+    blocked = dist["cuda"].numpy() < 0.3
+    start = frontend.world_to_grid(np.asarray(sc.clear_center), sc.lower,
+                                   sc.res)
+    free = np.argwhere(~blocked)
+    far = np.abs(free - start).max(1)
+    goal = tuple(free[(far > 100) & (far < 250)][0])
+    cells = frontend.jps_search(blocked.astype(np.uint8), start, goal)
+    gap = (dist["cuda"] - dist["cpu"]).abs()
+    out["scene"] = {"shape": list(sc.occupancy.shape),
+                    "occupied_frac": float(sc.occupancy.mean()),
+                    "esdf_equal": bool(torch.equal(dist["cuda"],
+                                                   dist["cpu"])),
+                    "esdf_cells_differing": int((gap > 0).sum()),
+                    "esdf_max_abs_err": float(gap.max()),
+                    "jps_cells": None if cells is None else len(cells),
+                    "wall_s": time.perf_counter() - t0}
+    print("dense scene: " + json.dumps(out["scene"]), flush=True)
+    assert sc.occupancy.shape == (500, 500) and out["scene"]["esdf_equal"]
+    assert cells is not None and len(cells) >= 2, out["scene"]
+    # the camera's voxel map through octomap files
+    st, lower, res = card_map
+    occ = vm.occupied_mask(st).cpu().numpy()
+    known = st.known.cpu().numpy()
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "chip_smoke_octomap")
+    os.makedirs(d, exist_ok=True)
+    sizes = {}
+    for ext, reader in (("bt", octomap_io.read_bt),
+                        ("ot", octomap_io.read_ot)):
+        path = os.path.join(d, f"camera_map.{ext}")
+        octomap_io.write_voxel_map(path, st, lower, res)
+        o2, k2 = reader(path).to_dense(lower, occ.shape)
+        assert np.array_equal(k2, known) and np.array_equal(o2, occ), ext
+        sizes[ext] = os.path.getsize(path)
+    out["octomap"] = {"voxels_known": int(known.sum()),
+                      "voxels_occupied": int(occ.sum()), "bytes": sizes}
+    # the native bus against the Python one, in this process
+    msg = EnvObs().pack()
+    with NativeUdpBus() as nat, UdpBus() as py:
+        nat.add_peer("127.0.0.1", py.address[1])
+        py.add_peer("127.0.0.1", nat.address[1])
+        py.subscribe("/env_obs", lambda m: py.publish("/env_obs_echo", m))
+        import threading
+        got = threading.Event()
+        nat.subscribe("/env_obs_echo", lambda m: got.set())
+        rtt = []
+        for i in range(220):
+            got.clear()
+            t0 = time.perf_counter()
+            nat.publish("/env_obs", msg)
+            assert got.wait(5.0), f"round trip {i} lost"
+            rtt.append(time.perf_counter() - t0)
+        back = np.asarray(nat.latest("/env_obs_echo"))
+        assert back.dtype == msg.dtype and np.array_equal(back, msg)
+    us = 1e6 * np.asarray(rtt[20:])
+    out["bus_round_trip_host_us"] = {"p50": float(np.percentile(us, 50)),
+                                     "p99": float(np.percentile(us, 99)),
+                                     "n": len(us), "bytes": msg.nbytes}
+    print("last modules on the card: " + json.dumps(out), flush=True)
+    return out
+
+
+def mesh_and_last_modules(wfc, hist_ref, params_ref, push_plan, card_map):
+    """Phase 10: a one-rank NCCL mesh on the card (`make_mesh(1)`) under
+    the tracking tick, the env step, the mission fleet and training, then
+    the last modules.  The profiler's kernel count and busy share are
+    printed, not held (a trace that sees no kernel is a finding about
+    the profiler here).  Returns the mesh mission's K1/K2 launches."""
+    import torch.distributed as dist
+    from alore_legged_manipulator_tpu_torch.parallel.mesh import make_mesh
+    child = start_unsharded_mission()
+    t0 = time.perf_counter()
+    mesh = make_mesh(1)
+    backend = dist.get_backend(mesh.group)
+    print(f"mesh: {mesh.size} rank(s) on {mesh.device}, backend {backend}, "
+          f"opened in {time.perf_counter() - t0:.2f} s", flush=True)
+    assert backend == "nccl", backend
+    try:
+        mesh_tick_and_env(mesh)
+        _, launches = mesh_mission(mesh, wfc, child)
+        mesh_training(mesh, hist_ref, params_ref)
+    finally:
+        dist.destroy_process_group()
+        if child[0].poll() is None:
+            child[0].kill()
+            child[0].wait()
+    last_modules_on_card(push_plan, card_map)
+    return launches
+
+
+def mesh_probe():
+    """Phase 10 alone, with what it reuses made first: the seed-0
+    training run cut to 2 iterations, the known-map push (its plan) and
+    the camera's card vs CPU check (its voxel map):
+    `python3 -c "import chip_smoke; chip_smoke.mesh_probe()"`."""
+    from alore_legged_manipulator_tpu_torch.ops import wavefront_cuda as wfc
+    from alore_legged_manipulator_tpu_torch.rl.runner import train
+    from alore_legged_manipulator_tpu_torch.utils.precision import (
+        set_precision_policy)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+    set_precision_policy()
+    wfc.build()
+    models = _init_models()
+    _, hist = train(_train_cfg(iterations=2), models=models)
+    params = {k: {n: v.clone() for n, v in m.state_dict().items()}
+              for k, m in zip(("actor", "critic"), models)}
+    _, _, plan = known_map_push_on_card(wfc)
+    _, card_map = camera_card_vs_cpu()
+    _phase("mesh and the last modules")
+    t0 = time.perf_counter()
+    mesh_and_last_modules(wfc, hist, params, plan, card_map)
+    print(f"phase 10 wall time: {time.perf_counter() - t0:.1f} s; probe "
+          f"wall time: {time.perf_counter() - T_START:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -1826,7 +2325,7 @@ def main() -> int:
     physics_card_vs_cpu()
     _phase("known-map arrangement push on the card, contact plant (plan, "
            f"first {KNOWN_MAP_PUSH_S} s)")
-    known_map_push_on_card(wfc)
+    _, _, push_plan = known_map_push_on_card(wfc)
     _phase("lidar-mapped arrangement mission on the card, contact plant")
     _, launches_mapped = arrangement_on_card(wfc)
 
@@ -1858,7 +2357,7 @@ def main() -> int:
     _phase(f"training: PPO on the contact plant, B=1536 x 24 steps, "
            f"{TRAIN_ITERS} iterations from the CSV's start")
     wfc.reset_launches()
-    state, _, _ = training_on_card()
+    state, hist_train, _, params_two = training_on_card()
     launches_train = dict(wfc.LAUNCHES)
     print("training, dispatched operations: "
           + json.dumps(train_dispatches(_train_cfg())), flush=True)
@@ -1866,10 +2365,18 @@ def main() -> int:
     checkpoint_round_trip_on_card(state)
     ppo_update_card_vs_cpu()
     _phase("camera: card vs CPU, bus mission on camera perception")
-    camera_card_vs_cpu()
+    _, card_map = camera_card_vs_cpu()
     _, launches_cam = camera_bus_mission_on_card(wfc)
 
-    # ---- 10. result lines ----
+    # ---- 10. the data-parallel layer and the last modules ----
+    _phase("mesh and the last modules")
+    t_mesh = time.perf_counter()
+    launches_mesh = mesh_and_last_modules(wfc, hist_train, params_two,
+                                          push_plan, card_map)
+    print(f"phase 10 wall time: {time.perf_counter() - t_mesh:.1f} s",
+          flush=True)
+
+    # ---- 11. result lines ----
     kern = []
     for name, replaces in (
             ("wavefront_packed",
@@ -1890,6 +2397,7 @@ def main() -> int:
             launches_bus_mission=launches_bus[name],
             launches_training=launches_train[name],
             launches_camera_mission=launches_cam[name],
+            launches_mesh_mission=launches_mesh[name],
             max_abs_err=max(m["max_abs_err"], m100[name]["max_abs_err"],
                             m64[name]["max_abs_err"]),
             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],

@@ -6,6 +6,8 @@ its configs keep the JAX package's field names and defaults.
   path among them) and must find none of `jax`, `flax`, `optax`, `orbax`
   and `alore_legged_manipulator_tpu` in `sys.modules`.
 * A scan of the port's sources finds no import of either.
+* The port has a twin of every module of the JAX package (its
+  `native/bus.cpp` too), byte for byte where the source is C++.
 * Every config NamedTuple the port shares with the JAX package has the
   same fields with equal defaults (nested configs compared field by
   field), and so do the dataclass configs (`PlanManagerConfig`,
@@ -60,8 +62,34 @@ def test_module_list_covers_the_slice():
               "runtime.bus_mission", "runtime.highlevel_controller",
               "rl.ppo", "rl.runner", "rl.registry", "world.camera",
               "world.voxel_map", "runtime.perception",
-              "runtime.camera_perception"):
+              "runtime.camera_perception", "parallel", "parallel.mesh",
+              "parallel.scaling", "parallel.dryrun", "utils.profiling",
+              "solvers.minco_s4", "ops.roots", "ops.sdlp", "world.scene",
+              "world.octomap_io", "runtime.transport",
+              "runtime.native_transport", "utils.viz"):
         assert f"{port_pkg.__name__}.{m}" in mods
+
+
+def test_every_jax_module_has_its_twin():
+    jax_root = REPO / "alore_legged_manipulator_tpu"
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = path.relative_to(jax_root)
+        if rel.name == "wavefront_pallas.py":      # csrc/wavefront.cu
+            continue
+        assert (ROOT / rel).exists(), f"no twin of {rel}"
+    for name in ("jps.cpp", "bus.cpp"):
+        assert (ROOT / "native" / name).read_bytes() == \
+            (jax_root / "native" / name).read_bytes(), name
+
+
+def test_obstacle_terrain_config_defaults_match():
+    from alore_legged_manipulator_tpu.world.scene import (
+        ObstacleTerrainConfig as J)
+    from alore_legged_manipulator_tpu_torch.world.scene import (
+        ObstacleTerrainConfig as T)
+    names = [f.name for f in dataclasses.fields(J)]
+    assert names == [f.name for f in dataclasses.fields(T)]
+    assert all(getattr(J(), n) == getattr(T(), n) for n in names)
 
 
 def test_importing_the_port_loads_no_jax():

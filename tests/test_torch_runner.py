@@ -18,7 +18,8 @@ surrogate env alone and with the frozen low-level WBC in the loop
 
 Also: `init_models`' per-layer mean and standard deviation against the
 JAX package's flax initialisers over 8 seeds (within 6 standard errors),
-the checkpoint round trip, `train(mesh=...)` raising, and the port
+the checkpoint round trip, `train(mesh=...)` refusing a mesh that does
+not divide the lanes, and the port
 learning on its own, as tests/test_rl.py holds the JAX package:
 `train(TrainConfig(num_envs=24, steps_per_env=24, iterations=30))`
 raises the mean reward by more than 0.2 and lowers the estimator loss.
@@ -265,8 +266,13 @@ def test_checkpoint_round_trip(tmp_path):
 
 
 def test_train_with_mesh_raises():
-    with pytest.raises(ValueError, match="parallel"):
-        trun.train(trun.TrainConfig(num_envs=3, iterations=1), mesh=object(),
+    """A mesh whose size does not divide the lanes is refused before any
+    collective (tests/test_torch_train_sharded.py trains on meshes)."""
+    from alore_legged_manipulator_tpu_torch.parallel.mesh import Mesh
+    mesh = Mesh(axis="env", group=None, rank=0, size=2,
+                device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="divide"):
+        trun.train(trun.TrainConfig(num_envs=3, iterations=1), mesh=mesh,
                    device="cpu")
 
 
