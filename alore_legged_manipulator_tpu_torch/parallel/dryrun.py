@@ -72,7 +72,7 @@ def tick_program(mesh: Mesh, batch: int = 256, dtype=torch.float32,
     cfg = NmpcConfig()
     step = batched_tracking_step(dryrun_traj(dtype), ICR, nmpc_cfg=cfg)
     B = batch * mesh.size
-    state = shard_scenarios(mesh, make_fleet(B, cfg, dtype)[:4])
+    state = shard_scenarios(mesh, make_fleet(B, cfg, dtype, mesh.device)[:4])
     if noise is None:
         noise = torch.Generator(device=mesh.device).manual_seed(mesh.rank)
     else:

@@ -27,6 +27,7 @@ from ..control.tracked_traj import build_tracked_traj
 from ..core.dynamics import ICRParams
 from ..estimator.icr_ekf import ekf_init
 from ..planner.flat_traj import Polynome
+from ..utils.precision import resolve_device
 from ..world.plant import plant_init
 from .mesh import (batched_tracking_step, fleet_reduce, make_mesh,
                    shard_scenarios)
@@ -54,10 +55,12 @@ def _tiny_traj(dtype=torch.float32):
     return build_tracked_traj(msg, n_grid=128), icr
 
 
-def make_fleet(n, cfg: NmpcConfig, dtype=torch.float32, device="cpu"):
+def make_fleet(n, cfg: NmpcConfig, dtype=torch.float32, device=None):
     """(plants, ekfs, carries, u_prev, gen) of `n` scenarios at rest at
-    the origin; `gen` a generator on `device` seeded 0 (the plant noise),
-    in place of the JAX package's per-lane keys."""
+    the origin on `device` (None means the card); `gen` a generator
+    there seeded 0 (the plant noise), in place of the JAX package's
+    per-lane keys."""
+    device = resolve_device(device)
     z = torch.zeros((n, 3), dtype=dtype, device=device)
     plants = plant_init(z, dtype)
     ekfs = ekf_init(z, (-0.2, 0.2, 0.1), dtype=dtype)
@@ -83,7 +86,7 @@ def measure_scaling(mesh_sizes: Sequence[int], batch_per_device: int = 64,
             continue
         fleet = batch_per_device * nd
         plants, ekfs, carries, u_prev, _ = shard_scenarios(
-            mesh, make_fleet(fleet, cfg))
+            mesh, make_fleet(fleet, cfg, device=mesh.device))
         gen = torch.Generator(device=mesh.device).manual_seed(mesh.rank)
 
         def sync():

@@ -30,16 +30,17 @@ import torch
 
 from ..utils.precision import resolve_device
 from ..world import physics2d as ph
-from .env import (HIST, N_ACTIONS, OBJ_HALF_EXT, OBS_DIM, PushEnvConfig,
-                  PushEnvState, _arm_q18, _draw_key, _reward_and_done,
-                  _rotate, _scales, _uniform)
+from .env import (HIST, N_ACTIONS, OBS_DIM, PushEnvConfig, PushEnvState,
+                  _arm_q18, _draw_key, _reward_and_done, _rotate, _scales,
+                  _uniform)
 from .obs_layout import RobotView
 
 ROBOT, OBJ = 0, 1
 
-# B2 base footprint ~0.9x0.6 m, mass ~60 kg
+# B2 base footprint ~0.9x0.6 m, mass ~60 kg; object boxes per class
 ROBOT_HALF_EXT = (0.45, 0.30)
 ROBOT_MASS = 60.0
+OBJ_HALF_EXT = ((0.30, 0.30), (0.50, 0.35), (0.25, 0.20))  # chair/table/box
 
 
 class PhysicsEnvConfig(NamedTuple):

@@ -116,7 +116,20 @@ since the script started:
    a JPS path from the clear center), the camera phase's voxel map
    through .bt and .ot files, and the native bus against the Python one
    (round trip p50 / p99, host clock).  `mesh_probe()` runs it alone.
-11. The `kernels` JSON line (with K1 and K2's launches on each path, 0
+11. The compiled reference's goldens on the card (`golden_probe()` runs
+   it alone), each family at its JAX test's tolerances, float64 and
+   float32 where that test has a float32 band, by the code of the port's
+   CPU golden tests (tests/test_torch_golden_*.py over
+   tests/torch_golden_io.py's numpy readers): the back end's MINCO cases
+   through the four spline solves (lu, thomas_scan, cr, dense), its
+   stage-1/2 costs and gradients, the controller's trajectory analysis,
+   the ICR-EKF op by op, the ESDF field and bilinear samples, the plant
+   tick by tick, the three occupancy-fusion goldens, the ACADO NMPC's
+   circle closed loop in three modes and the five LTV-MPC goldens (QP,
+   ADMM solution, tick).  The launch-bound ACADO and LTV parts run in
+   six child processes beside the parent's share.  One line a family:
+   checks, the check nearest its tolerance (deviation, tolerance), ms.
+12. The `kernels` JSON line (with K1 and K2's launches on each path, 0
    on the planner simulation, the mapped mission, the served policy,
    training and the camera mission, whose paths hold no wavefront; K1
    once on the mesh mission), the script's wall time, and as the last
@@ -132,6 +145,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -1756,7 +1770,7 @@ def mesh_tick_and_env(mesh):
     cfg = NmpcConfig()
     step = pm.batched_tracking_step(dryrun.dryrun_traj(), dryrun.ICR,
                                     nmpc_cfg=cfg)
-    state = tuple(pm.tree_map(lambda x: x.cuda(), make_fleet(B, cfg)[:4]))
+    state = make_fleet(B, cfg, device="cuda")[:4]
     out_one, tick_coll = _count_collectives(
         lambda: step(*state, noise.cuda(), 0.0))
     gap = _max_gap(pm.gather_scenarios(mesh, out_sh), out_one[:4])
@@ -2165,6 +2179,358 @@ def mesh_probe():
           f"wall time: {time.perf_counter() - T_START:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the compiled reference's goldens on the card
+# ---------------------------------------------------------------------------
+
+# ADMM iterations of the LTV goldens' solution and ticks
+# (tests/test_torch_ltv_mpc.py's)
+LTV_QP_ITERS = 4000
+LTV_TICK_ITERS = {torch.float64: 4000, torch.float32: 2000}
+LTV_F32_CASES = ("curve_d1", "tightturn_d2", "yawwrap_d1")
+# tests/test_torch_nmpc.py's three closed loops against the ACADO trace:
+# (label, dtype, tolerance, NmpcConfig fields)
+ACADO_LOOPS = (("f64", torch.float64, 1e-3, {}),
+               ("f32", torch.float32, 2e-3, {}),
+               ("f64 dense assoc rk4", torch.float64, 1e-3,
+                dict(qp_mode="dense", condense_mode="assoc",
+                     integrator="rk4")))
+
+
+def ltv_golden_checks(name, device="cuda"):
+    """One of the five LTV goldens (tests/golden/ltv) through the port at
+    tests/test_torch_ltv_mpc.py's tolerances: `_build_qp` against the
+    reference's QP (1e-12, numpy's default rtol 1e-7), the ADMM solution
+    after 4000 iterations (2e-5), the float64 tick (command 5e-5,
+    sequence 2e-4, delay buffer 5e-5) and, for LTV_F32_CASES, the
+    float32 tick (command 5e-3)."""
+    from alore_legged_manipulator_tpu_torch.control import ltv_mpc as tl
+    from alore_legged_manipulator_tpu_torch.ops.qp import qp_admm_general
+    from alore_legged_manipulator_tpu_torch.utils.angles import (
+        smooth_yaw_sequence)
+    from tests import torch_golden_io as gio
+
+    def t(a, dtype=torch.float64):
+        return torch.tensor(np.asarray(a)[None], dtype=dtype, device=device)
+
+    def host(x):
+        return x[0].to(torch.float64).cpu().numpy()
+    fields, state, xref, dref, output, buff, g = gio.ltv_case(name)
+    cfg = tl.LtvMpcConfig(**fields)
+    db = np.zeros((max(cfg.delay_num, 1), 2))
+    db[:buff.shape[0]] = buff
+    # the reference smooths the yaw reference before the tick
+    xref = xref.copy()
+    xref[3] = host(smooth_yaw_sequence(t(state[2]), t(xref[3])))
+    carry = tl.LtvMpcCarry(output=t(output), delay_buff=t(db))
+    xbar = tl._rollout(t(state[:3]), carry.output, cfg)
+    qp = tl._build_qp(xbar, t(xref), t(dref), carry, cfg)
+    checks = [gio.deviation(f"{name} QP {key}", host(a), g[key], 1e-12, 1e-7)
+              for a, key in zip(qp, ("P", "q", "A", "lb", "ub"))]
+    sol, _ = qp_admm_general(*(t(g[k]) for k in ("P", "q", "A", "lb", "ub")),
+                             iters=LTV_QP_ITERS, rho=0.4)
+    checks.append(gio.deviation(f"{name} ADMM solution", host(sol),
+                                g["sol0"], 2e-5, 1e-7))
+    for dtype in (torch.float64, torch.float32):
+        if dtype == torch.float32 and name not in LTV_F32_CASES:
+            continue
+        c = tl.LtvMpcCarry(output=t(output, dtype), delay_buff=t(db, dtype))
+        new, cmd = tl.ltv_mpc_tick(
+            c, t(state[:3], dtype), t(xref, dtype), t(dref, dtype),
+            cfg._replace(admm_iters=LTV_TICK_ITERS[dtype]))
+        lbl = f"{name} tick {str(dtype)[6:]}"
+        if dtype == torch.float32:
+            checks.append(gio.deviation(lbl + " command", host(cmd),
+                                        g["cmd"], 5e-3, 1e-7))
+            continue
+        checks += [
+            gio.deviation(lbl + " command", host(cmd), g["cmd"], 5e-5, 1e-7),
+            gio.deviation(lbl + " sequence", host(new.output), g["out"], 2e-4,
+                          1e-7)]
+        if cfg.delay_num > 0:
+            checks.append(gio.deviation(
+                lbl + " delay buffer",
+                host(new.delay_buff[:, -cfg.delay_num:]), g["buff_after"],
+                5e-5, 1e-7))
+    return checks
+
+
+def acado_circle_checks(loop, device="cuda"):
+    """tests/golden/acado_nmpc_circle.txt: the reference NMPC's 120-tick
+    closed loop on a 2 m circle at 1 m/s, replayed through the port's
+    `nmpc_rti_step` and RK4 plant as tests/test_torch_nmpc.py does, in
+    one of ACADO_LOOPS: trajectory and the steady-state (tick >= 40)
+    commands within 1e-3 (f64) / 2e-3 (f32), every command within 0.6,
+    wheel bounds held."""
+    from alore_legged_manipulator_tpu_torch.control import nmpc as tn
+    from alore_legged_manipulator_tpu_torch.core.dynamics import (
+        ICRParams, wheel_speeds_from_flat)
+    from tests import torch_golden_io as gio
+    golden = gio.acado_circle()
+    xs_ref, us_ref = golden[:, 1:4], golden[:, 4:6]
+    icr = ICRParams(yr=-0.3, yl=0.3, xv=0.2)
+    w, v = 0.5, 1.0
+    vl, vr = wheel_speeds_from_flat(w, v, icr)
+    label, dtype, tol, mode = loop
+    cfg = tn.NmpcConfig(delay_num=0, **mode)
+    x = torch.tensor([[0.05, -0.10, 0.30]], dtype=dtype, device=device)
+    carry = tn.nmpc_init(cfg, x, dtype)
+    steps = torch.arange(1, cfg.horizon + 2, dtype=dtype, device=device)
+    xs, us = [], []
+    for k in range(golden.shape[0]):
+        ts = (k + steps) * cfg.dt
+        yaw = w * ts
+        rx = v / w * torch.sin(yaw) - icr.xv * (torch.cos(yaw) - 1.0)
+        ry = -v / w * (torch.cos(yaw) - 1.0) - icr.xv * torch.sin(yaw)
+        ref_x = torch.stack([rx, ry, yaw])[None]
+        ref_u = torch.stack([torch.full_like(ts, vr),
+                             torch.full_like(ts, vl)])[None]
+        carry, u_cmd, _, _ = tn.nmpc_rti_step(carry, x, ref_x, ref_u, icr,
+                                              cfg)
+        xs.append(x[0])
+        us.append(u_cmd[0])
+        x = tn.rk4_step(x, u_cmd, icr, cfg.dt)
+    xs = torch.stack(xs).to(torch.float64).cpu().numpy()
+    us = torch.stack(us).to(torch.float64).cpu().numpy()
+    lbl = f"ACADO circle {label}"
+    return [
+        gio.bound(lbl + " position",
+                  np.linalg.norm(xs[:, :2] - xs_ref[:, :2], axis=1).max(),
+                  tol),
+        gio.bound(lbl + " yaw", np.abs(xs[:, 2] - xs_ref[:, 2]).max(), tol),
+        gio.bound(lbl + " steady commands",
+                  np.abs(us[40:] - us_ref[40:]).max(), tol),
+        gio.bound(lbl + " commands", np.abs(us - us_ref).max(), 0.6),
+        gio.bound(lbl + " wheel bound", np.abs(us).max(), 3.0 + 1e-6)]
+
+
+def fusion_checks(name, device="cuda"):
+    """One of the three fusion goldens of the compiled reference SDFmap
+    (tests/golden/fusion, fusion_cirsup, fusion_persp) through the
+    port's `world/lidar.py` as tests/test_torch_lidar.py replays them:
+    every grid cell's label equal, log-odds within 1e-5 (the perspective
+    branch leaves them at their initial values)."""
+    from alore_legged_manipulator_tpu_torch.world import lidar as tl
+    from tests import torch_golden_io as gio
+    (nx, ny, res, rng, n_beams, cir_sup, persp), scans, grid, lo = \
+        gio.fusion_case(name)
+    lcfg = tl.LidarConfig(n_beams=n_beams, fov_rad=2.0 * np.pi,
+                          max_range=rng)
+    ocfg = tl.OccupancyConfig()
+    st = tl.occupancy_init((nx, ny), ocfg, device=device)
+    init_lo = st.log_odds.clone()
+    lower = torch.zeros(2, device=device)
+    res32 = torch.tensor(res, dtype=torch.float32, device=device)
+
+    def t(a, dtype=None):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+    for i, scan in enumerate(scans):
+        pose = t(scan[0], torch.float32)
+        if persp:
+            st = tl.occupancy_update_perspective(
+                st, lower, res32, pose, t(scan[1]),
+                torch.ones(scan[1].shape[0], dtype=torch.bool,
+                           device=device), rng)
+        else:
+            # the reference's static counter fires cirSup on scans 2, 4, ...
+            st = tl.occupancy_update(st, lower, res32, pose, t(scan[1]),
+                                     t(scan[2]), lcfg, ocfg,
+                                     cir_sup=cir_sup and i % 2 == 1)
+    log_odds = st.log_odds.double().cpu().numpy()
+    checks = [gio.deviation(f"{name} grid labels",
+                            st.grid.cpu().numpy().astype(int), grid, 0.0),
+              gio.deviation(f"{name} log-odds", log_odds, lo, 1e-5)]
+    if persp:
+        checks.append(gio.deviation(f"{name} log-odds unchanged", log_odds,
+                                    init_lo.double().cpu().numpy(), 0.0))
+    return checks
+
+
+def _bind_repo_tests():
+    """Make `tests` this checkout's tests/ directory, a namespace
+    package, for the golden readers and checks imported from it: a
+    regular package of that name installed on the card's machine would
+    otherwise shadow it."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    mod = sys.modules.get("tests")
+    if mod is None or list(getattr(mod, "__path__", [])) != [path]:
+        mod = types.ModuleType("tests")
+        mod.__path__ = [path]
+        sys.modules["tests"] = mod
+
+
+def golden_parts(device="cuda"):
+    """Phase 11's work as (family, part, function returning its checks),
+    each at its JAX test's tolerances (float64, and float32 where that
+    test has a float32 band)."""
+    from alore_legged_manipulator_tpu_torch.solvers import minco as tm
+    _bind_repo_tests()
+    from tests import test_torch_golden_backend as gb
+    from tests import test_torch_golden_ekf as ge
+    from tests import test_torch_golden_esdf as gs
+    from tests import test_torch_golden_plant as gp
+    from tests import test_torch_golden_trajanal as gt
+    from tests import torch_golden_io as gio
+
+    def minco():
+        prev = tm.SMALL_N_SOLVER
+        try:
+            return [c for case in gio.MINCO_CASES for solver in gb.SOLVERS
+                    for dtype in (torch.float64, torch.float32)
+                    for c in gb.minco_checks(case, solver, dtype, device)]
+        finally:
+            tm.set_small_n_solver(prev)
+    parts = [("backend MINCO (lu, thomas_scan, cr, dense)", "all", minco)]
+    parts += [("backend stage-1/2 costs and gradients", n,
+               lambda n=n: gb.stage_cost_checks(n, device)
+               + gb.stage2_f32_checks(n, device))
+              for n in gio.BACKEND_SCENARIOS]
+    parts += [
+        ("trajanal", "all", lambda: [c for n in gio.TRAJANAL_CASES
+                                     for c in gt.trajanal_checks(n, device)]),
+        ("ekf", "all", lambda: [c for n in gio.EKF_CASES
+                                for c in ge.ekf_checks(n, device)]
+         + ge.ekf_f32_checks(device)),
+        ("esdf field and bilinear", "all",
+         lambda: [c for k in gio.ESDF_CASES
+                  for c in gs.field_checks(k, device)
+                  + gs.bilinear_checks(k, device)]),
+        ("plant", "all", lambda: [c for n in gio.PLANT_CASES
+                                  for dtype in (torch.float64, torch.float32)
+                                  for c in gp.plant_checks(n, dtype, device)])]
+    parts += [("fusion", n, lambda n=n: fusion_checks(n, device))
+              for n in gio.FUSION_CASES]
+    parts += [("ACADO NMPC circle", loop[0],
+               lambda loop=loop: acado_circle_checks(loop, device))
+              for loop in ACADO_LOOPS]
+    parts += [("LTV-MPC QP, solution, tick", n,
+               lambda n=n: ltv_golden_checks(n, device))
+              for n in gio.LTV_CASES]
+    return parts
+
+
+# the parts that run in child processes beside the parent, a group a
+# child: each group dispatches 0.80-0.83M operations, the parent's share
+# 1.0M (counted on the CPU); in one process the phase would take 60-90 s
+# at the card host's 10-16 us a dispatch
+GOLDEN_CHILDREN = ((("ACADO NMPC circle", "f64"),),
+                   (("ACADO NMPC circle", "f32"),),
+                   (("ACADO NMPC circle", "f64 dense assoc rk4"),
+                    ("LTV-MPC QP, solution, tick", "coldstart_d1")),
+                   (("LTV-MPC QP, solution, tick", "curve_d1"),),
+                   (("LTV-MPC QP, solution, tick", "tightturn_d2"),),
+                   (("LTV-MPC QP, solution, tick", "yawwrap_d1"),))
+
+
+def run_golden_parts(keys, device="cuda"):
+    """Run the parts named by `keys` ((family, part) pairs): a list of
+    {family, part, checks, ms}, each part's wall ended by a synchronize."""
+    out = []
+    for family, part, fn in golden_parts(device):
+        if (family, part) not in keys:
+            continue
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checks = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out.append({"family": family, "part": part, "checks": checks,
+                    "ms": 1e3 * (time.perf_counter() - t0)})
+    return out
+
+
+def golden_child(index, out_path, device="cuda"):
+    """One child of phase 11: the parts of GOLDEN_CHILDREN[index], its
+    result written to `out_path` as JSON."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from alore_legged_manipulator_tpu_torch.utils.precision import (
+        set_precision_policy)
+    set_precision_policy()
+    torch.set_num_threads(1)
+    res = run_golden_parts(GOLDEN_CHILDREN[index], device)
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def reference_goldens_on_card(device="cuda"):
+    """Phase 11: every family of the compiled reference's goldens that
+    the port's CPU tests read, replayed on the card by the same code
+    (tests/test_torch_golden_*.py's checks over tests/torch_golden_io.py's
+    readers; the LTV and ACADO goldens as tests/test_torch_ltv_mpc.py and
+    tests/test_torch_nmpc.py replay them) with the JAX tests' tolerances.
+    The launch-bound LTV and ACADO parts run in child processes
+    (GOLDEN_CHILDREN) beside the parent's share.  One line a family: its
+    check count, the check nearest its tolerance (deviation
+    and tolerance) and the summed wall ms of its parts; any check past
+    its tolerance fails the phase after the lines are printed."""
+    import shutil
+    import tempfile
+    _bind_repo_tests()
+    from tests import torch_golden_io as gio
+    tmp = tempfile.mkdtemp(prefix="goldens-")
+    here = os.path.dirname(os.path.abspath(__file__))
+    children = []
+    try:
+        for i in range(len(GOLDEN_CHILDREN)):
+            out_path = os.path.join(tmp, f"child{i}.json")
+            log = open(os.path.join(tmp, f"child{i}.log"), "w")
+            code = (f"import chip_smoke; chip_smoke.golden_child({i}, "
+                    f"{out_path!r}, {device!r})")
+            children.append((subprocess.Popen(
+                [sys.executable, "-c", code], cwd=here, stdout=log,
+                stderr=subprocess.STDOUT), out_path, log))
+        in_children = {k for group in GOLDEN_CHILDREN for k in group}
+        own = [(f, p) for f, p, _ in golden_parts(device)
+               if (f, p) not in in_children]
+        results = run_golden_parts(own, device)
+        for i, (proc, out_path, log) in enumerate(children):
+            rc = proc.wait(timeout=600)
+            log.close()
+            if rc != 0:
+                with open(log.name) as f:
+                    print(f.read()[-4000:], flush=True)
+                raise AssertionError(f"golden child {GOLDEN_CHILDREN[i]} "
+                                     f"exited {rc}")
+            with open(out_path) as f:
+                results += json.load(f)
+    finally:
+        for proc, _, log in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    failed = []
+    for family in dict.fromkeys(r["family"] for r in results):
+        parts = [r for r in results if r["family"] == family]
+        checks = [c for r in parts for c in r["checks"]]
+        lbl, dev, tol = gio.worst(checks)
+        row = {"family": family, "checks": len(checks), "worst": lbl,
+               "deviation": dev, "tolerance": tol,
+               "ms": sum(r["ms"] for r in parts)}
+        print("golden: " + json.dumps(row), flush=True)
+        failed += [c for c in checks if not c[1] <= c[2]]
+    gio.assert_checks(failed)
+
+
+def golden_probe():
+    """Phase 11 alone:
+    `python3 -c "import chip_smoke; chip_smoke.golden_probe()"`."""
+    from alore_legged_manipulator_tpu_torch.utils.precision import (
+        set_precision_policy)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    set_precision_policy()
+    _phase("reference goldens on the card")
+    t0 = time.perf_counter()
+    reference_goldens_on_card()
+    print(f"phase 11 wall time: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -2376,7 +2742,14 @@ def main() -> int:
     print(f"phase 10 wall time: {time.perf_counter() - t_mesh:.1f} s",
           flush=True)
 
-    # ---- 11. result lines ----
+    # ---- 11. the compiled reference's goldens on the card ----
+    _phase("reference goldens on the card")
+    t_gold = time.perf_counter()
+    reference_goldens_on_card()
+    print(f"phase 11 wall time: {time.perf_counter() - t_gold:.1f} s",
+          flush=True)
+
+    # ---- 12. result lines ----
     kern = []
     for name, replaces in (
             ("wavefront_packed",

@@ -4,6 +4,10 @@
   and `jps_search` returns the JAX package's paths cell for cell on every
   query of the reference goldens (tests/golden/jps); held to the
   goldens' optimal costs as tests/test_jps_parity.py holds JAX.
+* The first build is safe when several processes (the test workers)
+  reach it at once: each compiles to a file of its own and renames it
+  into place, so every process loads a whole library and no partial
+  file is left.
 * `jps_search` raises RuntimeError when g++ is missing (no A* fallback,
   which would return another path of equal cost); `_astar_fallback`
   stays the plain search whose costs JPS is held to.
@@ -50,6 +54,31 @@ def test_jps_builds_into_build_dir():
     assert so.exists() and so.parent.parent.name == "build"
     assert so.parent.name.startswith("jps-")
     assert tnative.load_jps() is tnative.load_jps()
+
+
+def test_concurrent_first_build_is_safe(tmp_path):
+    """Four processes build the JPS library into an empty build root at
+    once; each loads it, and the root holds the one library."""
+    import subprocess
+    import sys
+    code = ("import sys\n"
+            "from pathlib import Path\n"
+            "from alore_legged_manipulator_tpu_torch import native\n"
+            "native.BUILD_ROOT = Path(sys.argv[1])\n"
+            "lib = native.load_jps()\n"
+            "print('LOADED', native.library_path())\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = REPO
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(tmp_path)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env, cwd=REPO)
+             for _ in range(4)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err
+        assert "LOADED" in out
+    built = sorted(q.name for q in tmp_path.rglob("*") if q.is_file())
+    assert built == ["libjps.so"], built
 
 
 def test_jps_search_raises_without_gxx(monkeypatch, tmp_path):

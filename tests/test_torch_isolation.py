@@ -7,7 +7,9 @@ its configs keep the JAX package's field names and defaults.
   and `alore_legged_manipulator_tpu` in `sys.modules`.
 * A scan of the port's sources finds no import of either.
 * The port has a twin of every module of the JAX package (its
-  `native/bus.cpp` too), byte for byte where the source is C++.
+  `native/bus.cpp` too), byte for byte where the source is C++, and
+  each twin defines every public top-level name of its JAX module (an
+  AST scan), but for the JAX `precision=` helpers.
 * Every config NamedTuple the port shares with the JAX package has the
   same fields with equal defaults (nested configs compared field by
   field), and so do the dataclass configs (`PlanManagerConfig`,
@@ -82,6 +84,56 @@ def test_every_jax_module_has_its_twin():
             (jax_root / "native" / name).read_bytes(), name
 
 
+def _public_names(path):
+    """Names a module defines at its top level (functions, classes,
+    assignments, also under a top-level if / try), those without a
+    leading underscore."""
+    names = set()
+
+    def visit(body):
+        for node in body:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.ClassDef)):
+                names.add(node.name)
+            elif isinstance(node, ast.Assign):
+                names.update(n.id for t in node.targets for n in ast.walk(t)
+                             if isinstance(n, ast.Name))
+            elif isinstance(node, ast.AnnAssign) and \
+                    isinstance(node.target, ast.Name):
+                names.add(node.target.id)
+            elif isinstance(node, (ast.If, ast.Try)):
+                visit(node.body)
+                visit(node.orelse)
+                for h in getattr(node, "handlers", []):
+                    visit(h.body)
+                visit(getattr(node, "finalbody", []))
+    visit(ast.parse(path.read_text()).body)
+    return {n for n in names if not n.startswith("_")}
+
+
+# The JAX package's per-call `precision=` helpers: the port sets its
+# precision policy once (`utils/precision.py::set_precision_policy`:
+# TF32 off, float32 matmuls at full precision) instead of passing a
+# precision to each contraction, so it has no twin of these.
+PRECISION_ONLY = {"utils/precision.py": {"HIGHEST", "heinsum", "hmatvec"}}
+
+
+def test_every_public_name_has_its_twin():
+    jax_root = REPO / "alore_legged_manipulator_tpu"
+    missing = {}
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = path.relative_to(jax_root)
+        if rel.name == "wavefront_pallas.py":      # csrc/wavefront.cu
+            continue
+        gap = (_public_names(path) - _public_names(ROOT / rel)
+               - PRECISION_ONLY.get(str(rel), set()))
+        if gap:
+            missing[str(rel)] = sorted(gap)
+    assert not missing, missing
+    for rel, names in PRECISION_ONLY.items():
+        assert names <= _public_names(jax_root / rel)
+
+
 def test_obstacle_terrain_config_defaults_match():
     from alore_legged_manipulator_tpu.world.scene import (
         ObstacleTerrainConfig as J)
@@ -145,9 +197,24 @@ def test_sources_import_no_jax(path):
             f"{path.name} imports {name}"
 
 
+# what chip_smoke.py imports of the tests: the golden readers (with the
+# back-end oracle's) and the port-side replays of the golden tests
+CHIP_SMOKE_TEST_IMPORTS = ("torch_golden_io.py",
+                           "golden/backend_oracle/oracle_io.py",
+                           "test_torch_golden_backend.py",
+                           "test_torch_golden_trajanal.py",
+                           "test_torch_golden_ekf.py",
+                           "test_torch_golden_esdf.py",
+                           "test_torch_golden_plant.py")
+
+
 def test_chip_smoke_imports_no_jax():
-    for name in _imports(REPO / "chip_smoke.py"):
-        assert name.split(".")[0] not in ("jax", "alore_legged_manipulator_tpu")
+    for path in ["chip_smoke.py"] + [f"tests/{n}"
+                                     for n in CHIP_SMOKE_TEST_IMPORTS]:
+        for name in _imports(REPO / path):
+            assert name.split(".")[0] not in (
+                "jax", "jaxlib", "alore_legged_manipulator_tpu"), \
+                f"{path} imports {name}"
 
 
 _CONFIGS = [n for n in sorted(_CLASSES) if n.endswith(("Config", "Params",

@@ -262,3 +262,19 @@ def test_make_mesh_opens_one_rank_group():
     assert "TWO_RAISES" in out.stdout
     assert "NO_CARD_RAISES" in out.stdout
     assert "MESH 0 1 cpu gloo" in out.stdout
+
+
+def test_make_fleet_defaults_to_the_card(monkeypatch):
+    """make_fleet puts the fleet on the card unless asked for the CPU,
+    and raises without one (no CPU fallback)."""
+    from alore_legged_manipulator_tpu_torch.control.nmpc import NmpcConfig
+    from alore_legged_manipulator_tpu_torch.parallel.scaling import (
+        make_fleet)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        make_fleet(4, NmpcConfig(horizon=8))
+    plants, ekfs, carries, u_prev, gen = make_fleet(4, NmpcConfig(horizon=8),
+                                                    device="cpu")
+    assert gen.device.type == "cpu"
+    assert all(x.device.type == "cpu"
+               for x in _leaves((plants, ekfs, carries, u_prev)))

@@ -139,7 +139,7 @@ def tick_inputs(B, horizon, dtype, seed=0, substeps=5):
         _tiny_traj, make_fleet)
     tt, icr = _tiny_traj(dtype)
     cfg = NmpcConfig(horizon=horizon)
-    state = make_fleet(B, cfg, dtype)[:4]
+    state = make_fleet(B, cfg, dtype, device="cpu")[:4]
     rng = np.random.default_rng(seed)
     noise = torch.as_tensor(rng.standard_normal((B, substeps, 2)),
                             dtype=dtype)
