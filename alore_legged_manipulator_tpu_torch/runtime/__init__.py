@@ -1,0 +1,2 @@
+from .closed_loop import (LoopConfig, simulate_tracking,  # noqa: F401
+                          TrackingResult)

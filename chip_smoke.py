@@ -50,16 +50,16 @@ since the script started:
    `delivered_frac` after the rounds must reach 0.75.  Then 4 lanes
    through 100 `physics_substep`s (servo, grasp weld, contact, a static
    box) in float64 on the card and on the CPU, agreeing to 1e-9.  Then
-   the known-map arrangement of tests/test_arrangement.py's scene cut in
-   depth to its push's plan (`PlanManager`, JPS front end, MINCO back
-   end) and the push's first KNOWN_MAP_PUSH_S simulated seconds on the
-   contact plant, held to that test's p95 tracking bound; then the
-   arrangement mission on the contact plant on the card (ordering ->
-   task FSM -> JPS front end -> PlanManager -> push), its first object,
-   on a map that starts empty and is fused from 3 m lidar scans
-   (`mapped=True`, MappedPlanManager), so that the wall is discovered on
-   the way, held to the mapped test's bounds, sensing timed as its own
-   phase; both with host wall time by phase.
+   the arrangement mission of tests/test_arrangement.py's scene on the
+   contact plant on the card (ordering -> task FSM -> JPS front end ->
+   PlanManager -> push), its first object, on a map that starts empty
+   and is fused from 3 m lidar scans (`mapped=True`, MappedPlanManager),
+   so that the wall is discovered on the way, cut in depth to the first
+   MAPPED_PUSH_S simulated seconds of the push planned on the fused map
+   and held to the mapped test's p95 bound there, with host wall time
+   by phase, sensing its own.  Phase 12's two-object contact-plant
+   mission runs that same push (item, target, plant) to delivery on the
+   known map.
 6. The planner simulation (`run_planner_sim`) at the goldens' full width
    (140x60 corridor, 360 beams to 5 m, LTV horizon 30 with 3 x 150 ADMM
    passes, NMPC N=50, float32), cut in depth to PS_LTV_T and PS_NMPC_T
@@ -86,8 +86,8 @@ since the script started:
    policy and the contact plant on the card (DONE within 0.5 m, wall by
    phase); the frozen low-level WBC with seeded random weights, card
    against CPU (50 deployment ticks at f32 within 1e-4, 10 contact-plant
-   hierarchy steps at f64 within 1e-9).  `served_probe()` runs these and
-   the known-map push alone.
+   hierarchy steps at f64 within 1e-9).  `served_probe()` runs these
+   alone.
 9. Training the high-level policy and the camera perception path: PPO
    at full width (B=1536 x 24 contact-plant steps, TRAIN_ITERS
    iterations) from the JAX package's seed-0 initial parameters
@@ -111,8 +111,8 @@ since the script started:
    first two (test_train_sharded.py's f32 tolerances); one tick traced
    by `device_trace` (kernels, device-busy share).  Then the last
    modules: the septic MINCO card vs CPU at f64 and against the
-   oracle's goldens, `max_rates` of the known-map push's plan card vs
-   CPU, `make_scene("dense")` at 500x500 (card ESDF equal to the CPU's,
+   oracle's goldens, `max_rates` of the mapped arrangement's push plan
+   card vs CPU, `make_scene("dense")` at 500x500 (card ESDF equal to the CPU's,
    a JPS path from the clear center), the camera phase's voxel map
    through .bt and .ot files, and the native bus against the Python one
    (round trip p50 / p99, host clock).  `mesh_probe()` runs it alone.
@@ -129,17 +129,33 @@ since the script started:
    ADMM solution, tick).  The launch-bound ACADO and LTV parts run in
    six child processes beside the parent's share.  One line a family:
    checks, the check nearest its tolerance (deviation, tolerance), ms.
-12. The `kernels` JSON line (with K1 and K2's launches on each path, 0
+12. The port's entry points (`alore_legged_manipulator_tpu_torch/entry.py`
+   and the example twins under `.../examples/`): `entry()`'s B=64, N=50
+   RTI tick on the card against the CPU (f32, 1e-4) and its median wall
+   over 20 repeats; `mission_validation` at its defaults, orders and
+   costs equal to the JAX example's; then the three child processes
+   started right after phase 1 are joined (EXAMPLE_CHILDREN, each its
+   own timeout, any failure fails the script): `arrangement_mission
+   --objects 3` on the kinematic plant and `--objects 2 --physics`, each
+   delivering every object inside tests/test_arrangement.py's bounds for
+   its plant, and `planner_sim` at its defaults (inside PLANNER_SIM_BAND
+   of the JAX example's CPU run) followed by `train_and_deploy_highlevel
+   --physics --load-ckpt examples/artifacts/ckpt_physics_6000` (eval
+   inside the JAX value + 0.05 per axis, mission DELIVERED within
+   0.5 m).  One `example:` JSON line a run: wall by phase, plans, ticks,
+   dispatched operations per tick, kernel launches.
+13. The `kernels` JSON line (with K1 and K2's launches on each path, 0
    on the planner simulation, the mapped mission, the served policy,
-   training and the camera mission, whose paths hold no wavefront; K1
-   once on the mesh mission), the script's wall time, and as the last
-   line {"ok": true, "device": {...}}.
+   training, the camera mission and the entry points, whose paths hold no
+   wavefront; K1 once on the mesh mission), the script's wall time, and
+   as the last line {"ok": true, "device": {...}}.
 
 Fails (non-zero exit, no result line) without a CUDA card or without the
 package beside it.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import atexit
 import json
 import os
 import subprocess
@@ -154,10 +170,11 @@ import torch
 SMEM_BYTES_PER_S = 132 * 128 * 1.98e9
 T_START = time.perf_counter()
 # simulated seconds of the two planner-simulation phases (depth cut)
-PS_LTV_T = 0.5
+PS_LTV_T = 0.3
 PS_NMPC_T = 0.3
-# simulated seconds of the known-map arrangement's push (depth cut)
-KNOWN_MAP_PUSH_S = 1.0
+# simulated seconds of the lidar-mapped arrangement's push (depth cut:
+# phase 12's two-object contact-plant mission runs that push to delivery)
+MAPPED_PUSH_S = 2.0
 # push ticks of the ring fleet and of the timed first leg (depth cuts)
 RING_PUSH_TICKS = 100
 LEG_PUSH_TICKS = 30
@@ -671,83 +688,35 @@ class PhaseClock:
         return {**self.phases, "other_host": wall - sum(self.phases.values())}
 
 
-def known_map_push_on_card(wfc, push_s=KNOWN_MAP_PUSH_S):
-    """The known-map arrangement's push on the contact plant, on the
-    card, cut in depth to its plan and the first `push_s` simulated
-    seconds of its push: tests/test_arrangement.py's scene (100x100,
-    wall occ[48:52, 20:45]) with every item painted, the pushed item
-    unlocked, `PlanManager` planning item (2.5, 2.5) to target (8, 7.5)
-    from the robot's heading on arrival (from its start (5, 1)), then
-    `simulate_tracking_physics` for push_s.  Held to that test's p95
-    tracking bound (0.25 m) over the simulated part.  Host wall time by
-    phase.  Returns the summary and K1/K2 launches."""
-    from alore_legged_manipulator_tpu_torch.mission import plan_manager as pm
-    from alore_legged_manipulator_tpu_torch.runtime import (
-        closed_loop_physics as clp)
-    occ = np.zeros((100, 100), bool)
-    occ[48:52, 20:45] = True
-    item, target, start = (2.5, 2.5), (8.0, 7.5, 0.0), (5.0, 1.0)
-    clock = PhaseClock()
-    clock.wrap(pm, "plan_frontend", "front_end")
-    clock.wrap(pm, "esdf_from_occupancy", "esdf_updates")
-    clock.wrap(pm, "plan_backend", "back_end")
-    clock.wrap(pm, "build_tracked_traj", "tracked_traj")
-    clock.wrap(clp, "simulate_tracking_physics", "tracking")
-    wfc.reset_launches()
-    ticks = int(round(push_s / 0.01))
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        man = pm.PlanManager(occ=occ.copy(), lower=(0.0, 0.0), res=0.1,
-                             cfg=pm.PlanManagerConfig())
-        man.paint_square(np.asarray(item), half_size=0.25)
-        man.paint_square(np.asarray(item), half_size=0.3, make_obs=False)
-        yaw = float(np.arctan2(item[1] - start[1], item[0] - start[0]))
-        man.set_goal(target)
-        msg = man.tick(0.0, np.array([item[0], item[1], yaw]))
-        assert msg is not None, f"push planning failed: {man.state}"
-        dur = float(man.tracked.duration[0])
-        res = clp.simulate_tracking_physics(man.tracked, ticks,
-                                            clp.PhysicsLoopConfig(), seed=1)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        clock.restore()
-    launches = dict(wfc.LAUNCHES)
-    perr = res.pos_err[0, :min(ticks, int(dur / 0.01))].cpu().numpy()
-    summary = {"plan_duration_s": dur, "simulated_push_s": push_s,
-               "push_tracking_err_p95": float(np.percentile(perr, 95)),
-               "grasp_gap_max": float(res.grasp_gap.max()),
-               "object_moved_m": float(np.linalg.norm(
-                   res.obj_xytheta[0, -1, :2].cpu().numpy()
-                   - np.asarray(item))),
-               "wall_s": wall, "wall_by_phase_s": clock.report(wall),
-               "kernel_launches": launches}
-    print("known-map arrangement push, contact plant, plan and first "
-          f"{push_s} s, on the card: " + json.dumps(summary), flush=True)
-    assert summary["push_tracking_err_p95"] < 0.25, summary
-    assert summary["object_moved_m"] > 0.1 * push_s, summary
-    assert bool(torch.isfinite(res.obj_xytheta).all())
-    return summary, launches, man.tracked.traj
-
-
-def arrangement_on_card(wfc):
+def arrangement_on_card(wfc, push_s=MAPPED_PUSH_S):
     """The arrangement mission of tests/test_arrangement.py's scene on
-    the contact plant, on the card, cut to its first object: item (2.5,
-    2.5) to target (8, 7.5) past the wall occ[48:52, 20:45].  The
-    planning map starts empty and is fused from 3 m lidar scans
-    (MappedPlanManager, raycast), so the wall is found on the way.  Host
-    wall time by phase, sensing its own.  Returns (summary, K1/K2
-    launches)."""
+    the contact plant, on the card, cut to its first object and the first
+    `push_s` simulated seconds of that object's push: item (2.5, 2.5) to
+    target (8, 7.5) past the wall occ[48:52, 20:45].  The planning map
+    starts empty and is fused from 3 m lidar scans (MappedPlanManager,
+    raycast), so the wall is found on the way; the push is planned on
+    the fused map.  The same push on the contact plant runs to delivery
+    in phase 12's two-object mission.  Held to the mapped test's p95
+    tracking bound (0.25 m) over the simulated part, and the object must
+    advance.  Host wall time by phase, sensing its own.  Returns
+    (summary, K1/K2 launches, the push's planned trajectory)."""
     from alore_legged_manipulator_tpu_torch.mission import plan_manager as pm
     from alore_legged_manipulator_tpu_torch.runtime import arrangement as arr
     from alore_legged_manipulator_tpu_torch.world.lidar import LidarConfig
     occ = np.zeros((100, 100), bool)
     occ[48:52, 20:45] = True
+    item = (2.5, 2.5, 0.0)
     mission = arr.ArrangementMission(
-        occ=occ, lower=(0.0, 0.0), res=0.1, items=[(2.5, 2.5, 0.0)],
+        occ=occ, lower=(0.0, 0.0), res=0.1, items=[item],
         targets=[(8.0, 7.5, 0.0)], use_physics_plant=True, mapped=True,
         lidar_cfg=LidarConfig(max_range=3.0))
+    ticks = int(round(push_s / 0.01))
+    full_push, pushed = arr.simulate_tracking_physics, []
+
+    def cut_push(tracked, _ticks, cfg, seed=0):
+        pushed.append(tracked)
+        return full_push(tracked, ticks, cfg, seed=seed)
+    arr.simulate_tracking_physics = cut_push
     clock = PhaseClock()
     clock.wrap(arr, "jps_search", "ordering_and_approach_jps")
     clock.wrap(pm, "plan_frontend", "front_end")
@@ -760,27 +729,33 @@ def arrangement_on_card(wfc):
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rep = mission.run(robot_start=(5.0, 1.0, 1.57))
+        rep = mission.run(robot_start=(5.0, 1.0, 1.57), record_tracks=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
         clock.restore()
+        arr.simulate_tracking_physics = full_push
     launches = dict(wfc.LAUNCHES)
+    (track,) = rep.object_tracks
     summary = {"mapped": True, "order": rep.order,
-               "delivered": rep.delivered,
-               "final_object_err": rep.final_object_err,
+               "simulated_push_s": push_s,
                "push_tracking_err_p95": rep.push_tracking_err_p95,
-               "sim_time_s": rep.sim_time_s, "wall_s": wall,
+               "object_moved_m": float(np.linalg.norm(
+                   track[-1, :2] - np.asarray(item[:2]))),
+               "wall_s": wall,
                "wall_by_phase_s": clock.report(wall),
                "scans": clock.calls.get("sensing", 0),
+               "plans": clock.calls.get("back_end", 0),
                "kernel_launches": launches}
     print("arrangement mission, first object, contact plant, lidar-mapped "
-          "map, on the card: " + json.dumps(summary), flush=True)
-    assert all(rep.delivered), rep
-    assert max(rep.final_object_err) < 0.15, rep.final_object_err
-    assert len(rep.order) == 1
+          f"map, plan and first {push_s} s of the push, on the card: "
+          + json.dumps(summary), flush=True)
+    assert rep.order == [0] and summary["plans"] == 1, summary
+    assert len(track) == ticks and np.isfinite(track).all()
+    assert summary["push_tracking_err_p95"] < 0.25, summary
+    assert summary["object_moved_m"] > 0.1 * push_s, summary
     assert summary["scans"] > 8, summary["scans"]
-    return summary, launches
+    return summary, launches, pushed[0].traj
 
 
 GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
@@ -919,8 +894,8 @@ def planner_probe():
 
 def served_probe():
     """The served policy's phases alone (the policy card vs CPU, the
-    eval, the bus mission, the low-level WBC) and the known-map push
-    cut, about two minutes of command time."""
+    eval, the bus mission, the low-level WBC), about two minutes of
+    command time."""
     from alore_legged_manipulator_tpu_torch.ops import wavefront_cuda as wfc
     from alore_legged_manipulator_tpu_torch.utils.precision import (
         set_precision_policy)
@@ -932,8 +907,7 @@ def served_probe():
     for name, fn in (("policy", policy_card_vs_cpu),
                      ("eval", tracking_eval_on_card),
                      ("bus mission", lambda: bus_mission_on_card(wfc)),
-                     ("low level", low_level_card_vs_cpu),
-                     ("known-map push", lambda: known_map_push_on_card(wfc))):
+                     ("low level", low_level_card_vs_cpu)):
         _phase(name)
         fn()
 
@@ -1995,9 +1969,9 @@ def _minco_s4_goldens():
 def last_modules_on_card(push_plan, card_map):
     """The last modules of the port on the card: the septic MINCO at f64
     card vs CPU (1e-9 of each quantity's largest magnitude) and against
-    the compiled reference's goldens; `max_rates`
-    of the known-map push's plan card vs CPU (f64, 1e-9); the "dense"
-    scene at its full 500x500: card ESDF equal to the CPU's bit for bit,
+    the compiled reference's goldens; `max_rates` of the mapped
+    arrangement's push plan card vs CPU (f64, 1e-9); the "dense" scene at
+    its full 500x500: card ESDF equal to the CPU's bit for bit,
     a JPS path from the clear center to a free cell 10-25 m out; the
     camera phase's voxel map through .bt and .ot files and back; the
     native UDP bus
@@ -2153,8 +2127,8 @@ def mesh_and_last_modules(wfc, hist_ref, params_ref, push_plan, card_map):
 
 def mesh_probe():
     """Phase 10 alone, with what it reuses made first: the seed-0
-    training run cut to 2 iterations, the known-map push (its plan) and
-    the camera's card vs CPU check (its voxel map):
+    training run cut to 2 iterations, the mapped arrangement's push (its
+    plan) and the camera's card vs CPU check (its voxel map):
     `python3 -c "import chip_smoke; chip_smoke.mesh_probe()"`."""
     from alore_legged_manipulator_tpu_torch.ops import wavefront_cuda as wfc
     from alore_legged_manipulator_tpu_torch.rl.runner import train
@@ -2170,7 +2144,7 @@ def mesh_probe():
     _, hist = train(_train_cfg(iterations=2), models=models)
     params = {k: {n: v.clone() for n, v in m.state_dict().items()}
               for k, m in zip(("actor", "critic"), models)}
-    _, _, plan = known_map_push_on_card(wfc)
+    _, _, plan = arrangement_on_card(wfc)
     _, card_map = camera_card_vs_cpu()
     _phase("mesh and the last modules")
     t0 = time.perf_counter()
@@ -2531,6 +2505,299 @@ def golden_probe():
     print(f"phase 11 wall time: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+# ---------------------------------------------------------------------------
+# phase 12: the port's entry points
+# ---------------------------------------------------------------------------
+
+# the JAX example's visit orders and costs (examples/mission_validation.py
+# at its defaults: 4 tasks, 5 trials, seed 0), equal to the port's on the
+# CPU (tests/test_torch_example_validation.py): (greedy order, greedy
+# cost, branch-and-bound order, branch-and-bound cost) a trial
+MISSION_VALIDATION_JAX = (
+    ([2, 8, 1, 7, 4, 5, 3, 6], 32.92081528017131,
+     [2, 6, 4, 8, 1, 5, 3, 7], 39.93380951166243),
+    ([3, 5, 4, 7, 1, 8, 2, 6], 26.57350647362943,
+     [3, 7, 4, 8, 1, 5, 2, 6], 28.284776310850237),
+    ([2, 5, 4, 6, 1, 8, 3, 7], 21.579393923934006,
+     [1, 5, 2, 6, 4, 8, 3, 7], 26.310764773832478),
+    ([4, 7, 2, 6, 3, 5, 1, 8], 31.299494936611666,
+     [3, 7, 2, 6, 4, 8, 1, 5], 32.53086578651015),
+    ([3, 6, 1, 5, 4, 7, 2, 8], 26.6350288425444,
+     [3, 7, 2, 6, 1, 5, 4, 8], 34.38061325481598))
+# the JAX example examples/planner_sim.py at its defaults on the CPU
+# (float32, noise 0.01), as it prints them (m); the port's run must land
+# within PLANNER_SIM_BAND of each: 2x the largest value the JAX example
+# itself printed under 1e-4 m moves of its start (goal distance
+# 0.003-0.011, mean 0.013-0.015, p95 0.026-0.027)
+PLANNER_SIM_JAX = {"goal_dist": 0.006, "err_mean": 0.013, "err_p95": 0.027}
+PLANNER_SIM_BAND = 0.02
+# the bounds of tests/test_arrangement.py (max final error, p95) on each
+# plant, which the example's runs are held to
+ARRANGEMENT_BOUNDS = {False: (0.1, 0.2), True: (0.15, 0.25)}
+# phase 12's child processes: a name and the runs of the example twins
+# (module of alore_legged_manipulator_tpu_torch.examples, flags), each
+# child started after phase 1 and joined before the result lines
+EXAMPLE_CHILDREN = (
+    ("arrangement_3_objects",
+     (("arrangement_mission", ["--objects", "3"]),)),
+    ("arrangement_2_objects_physics",
+     (("arrangement_mission", ["--objects", "2", "--physics"]),)),
+    ("planner_sim_then_deploy",
+     (("planner_sim", []),
+      ("train_and_deploy_highlevel",
+       ["--physics", "--load-ckpt",
+        os.path.join("examples", "artifacts", "ckpt_physics_6000")]))))
+EXAMPLE_CHILD_TIMEOUT_S = 900
+
+
+def _kill_children(children):
+    for _, proc, _, _ in children:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _jsonable(x):
+    """`x` with what JSON cannot hold (modules, tensors) left out."""
+    if isinstance(x, dict):
+        return {k: _jsonable(v) for k, v in x.items()
+                if isinstance(v, (dict, list, tuple, str, int, float, bool,
+                                  type(None), np.generic))}
+    if isinstance(x, (list, tuple)):
+        return [_jsonable(v) for v in x]
+    return x.item() if isinstance(x, np.generic) else x
+
+
+def _example_run(module, flags):
+    """One example twin's `main` on the card, with host wall time by
+    phase (each wrapped call ended by a synchronize), its plans, ticks,
+    the dispatched operations of one tick of each plant on its first
+    tracked trajectory, and the wavefront kernels' launches (counted
+    from 0)."""
+    import importlib
+
+    from alore_legged_manipulator_tpu_torch.core.dynamics import ICRParams
+    from alore_legged_manipulator_tpu_torch.mission import plan_manager as pm
+    from alore_legged_manipulator_tpu_torch.ops import wavefront_cuda as wfc
+    from alore_legged_manipulator_tpu_torch.runtime import arrangement as arr
+    from alore_legged_manipulator_tpu_torch.runtime.closed_loop import (
+        LoopConfig)
+    ex = importlib.import_module(
+        f"alore_legged_manipulator_tpu_torch.examples.{module}")
+    clock, tracked = PhaseClock(), []
+
+    def track(owner, name, ticks_at):
+        fn = getattr(owner, name)
+
+        def recorded(*a, **kw):
+            tracked.append((a[0], a[ticks_at]))
+            return fn(*a, **kw)
+        setattr(owner, name, recorded)
+        clock.wrap(owner, name, "tracking")
+    if module in ("arrangement_mission", "planner_sim"):
+        clock.wrap(pm, "plan_frontend", "front_end")
+        clock.wrap(pm, "esdf_from_occupancy", "esdf_updates")
+        clock.wrap(pm, "plan_backend", "back_end")
+        clock.wrap(pm, "build_tracked_traj", "tracked_traj")
+    if module == "arrangement_mission":
+        clock.wrap(arr, "jps_search", "ordering_and_approach_jps")
+        track(arr, "simulate_tracking", 2)
+        track(arr, "simulate_tracking_physics", 1)
+    elif module == "planner_sim":
+        track(ex, "simulate_tracking", 2)
+    else:
+        clock.wrap(ex, "restore", "restore")
+        clock.wrap(ex, "tracking_eval", "tracking_eval")
+        clock.wrap(ex, "bus_mission", "bus_mission")
+    wfc.reset_launches()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = ex.main(flags)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        clock.restore()
+    run = {"example": module, "flags": flags, "result": _jsonable(result),
+           "wall_s": wall, "wall_by_phase_s": clock.report(wall),
+           "kernel_launches": dict(wfc.LAUNCHES)}
+    if tracked:
+        run["plans"] = clock.calls.get("back_end", 0)
+        run["ticks"] = int(sum(t for _, t in tracked))
+        run["dispatches_per_tick"] = ops_per_tick(
+            tracked[0][0], ICRParams(-0.3, 0.3, 0.2), LoopConfig())
+    return run
+
+
+def example_child(index, out_path):
+    """One child of phase 12: the runs of EXAMPLE_CHILDREN[index] on the
+    card, one `example:` JSON line each; written to `out_path` as JSON."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.set_num_threads(1)
+    name, runs = EXAMPLE_CHILDREN[index]
+    out = []
+    for module, flags in runs:
+        out.append(_example_run(module, flags))
+        print("example: " + json.dumps({"child": name, **out[-1]}),
+              flush=True)
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def start_example_children():
+    """Starts every child of EXAMPLE_CHILDREN; returns [(name, process,
+    output path, log path)]."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "build", "chip_smoke_examples")
+    os.makedirs(out_dir, exist_ok=True)
+    children = []
+    for i, (name, _) in enumerate(EXAMPLE_CHILDREN):
+        out, log = (os.path.join(out_dir, f"{name}.{ext}")
+                    for ext in ("json", "log"))
+        for p in (out, log):
+            if os.path.exists(p):
+                os.remove(p)
+        with open(log, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-c", "import chip_smoke; "
+                 f"chip_smoke.example_child({i}, {out!r})"],
+                cwd=root, stdout=f, stderr=subprocess.STDOUT)
+        children.append((name, proc, out, log))
+    return children
+
+
+def join_example_children(children):
+    """Waits for each child (EXAMPLE_CHILD_TIMEOUT_S from the start of the
+    wait, each), prints its runs, and fails if one exited non-zero or
+    timed out; a child still running on the way out is killed.  Returns
+    {child name: its runs}."""
+    t_end = time.perf_counter() + EXAMPLE_CHILD_TIMEOUT_S
+    runs = {}
+    try:
+        for name, proc, out, log in children:
+            rc = proc.wait(timeout=max(t_end - time.perf_counter(), 1.0))
+            with open(log) as f:
+                text = f.read()
+            if rc != 0:
+                print(text[-6000:], flush=True)
+                raise AssertionError(f"example child {name} exited {rc}")
+            with open(out) as f:
+                runs[name] = json.load(f)
+            for r in runs[name]:
+                print("example: " + json.dumps({"child": name, **r}),
+                      flush=True)
+    finally:
+        _kill_children(children)
+    return runs
+
+
+def check_example_runs(runs):
+    """Holds the children's outcomes: each arrangement delivers every
+    object inside tests/test_arrangement.py's bounds for its plant, the
+    planner simulation lands inside PLANNER_SIM_BAND of the JAX
+    example's CPU run, the deploy run's eval inside the JAX package's
+    value + 0.05 per axis and its mission DELIVERED within 0.5 m."""
+    for name, physics, n in (("arrangement_3_objects", False, 3),
+                             ("arrangement_2_objects_physics", True, 2)):
+        (r,) = runs[name]
+        res = r["result"]
+        err_max, p95_max = ARRANGEMENT_BOUNDS[physics]
+        assert len(res["order"]) == n and all(res["delivered"]), res
+        assert max(res["final_object_err"]) < err_max, res
+        assert res["push_tracking_err_p95"] < p95_max, res
+    ps, deploy = (r["result"] for r in runs["planner_sim_then_deploy"])
+    for k, ref in PLANNER_SIM_JAX.items():
+        assert np.isfinite(ps[k]) and abs(ps[k] - ref) <= PLANNER_SIM_BAND, \
+            (k, ps[k], ref)
+    for a, ref in zip(deploy["eval_err"], JAX_EVAL_ERR):
+        assert np.isfinite(a) and a <= ref + 0.05, (deploy["eval_err"],
+                                                     JAX_EVAL_ERR)
+    assert deploy["ok"] and deploy["mission_err"] < 0.5, deploy
+
+
+def entry_on_card(smi):
+    """`entry()`'s tick on the card against the same tick on the CPU
+    (f32, u_cmd within 1e-4, tests/test_torch_nmpc.py's tolerance), and
+    its median wall over repeats, each ended by a synchronize (a note,
+    not a bench).  Returns the summary."""
+    from alore_legged_manipulator_tpu_torch import entry as ent
+    fn, args = ent.entry()
+    fn_cpu, args_cpu = ent.entry(device="cpu")
+    with torch.no_grad():
+        err = float((fn(*args).cpu() - fn_cpu(*args_cpu)).abs().max())
+        times = []
+        for k in range(23):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            if k >= 3:
+                times.append(time.perf_counter() - t0)
+    summary = {"batch": int(args[0].shape[0]),
+               "horizon": int(args[1].shape[1]), "max_abs_err": err,
+               "tick_ms_median": 1e3 * float(np.median(times)),
+               "tick_ms_min": 1e3 * min(times),
+               "tick_ms_max": 1e3 * max(times), "repeats": len(times),
+               "card": smi}
+    print("entry(): RTI tick, card vs CPU: " + json.dumps(summary),
+          flush=True)
+    assert np.isfinite(err) and err <= 1e-4, err
+    return summary
+
+
+def mission_validation_on_card():
+    """examples/mission_validation.py's twin at its defaults: orders and
+    costs equal to the JAX example's (MISSION_VALIDATION_JAX)."""
+    from alore_legged_manipulator_tpu_torch.examples import (
+        mission_validation)
+    got = mission_validation.main([])["trials"]
+    assert len(got) == len(MISSION_VALIDATION_JAX)
+    for t, (g_order, g_cost, b_order, b_cost) in zip(got,
+                                                     MISSION_VALIDATION_JAX):
+        assert (t["greedy_order"], t["greedy_cost"], t["bnb_order"],
+                t["bnb_cost"]) == (g_order, g_cost, b_order, b_cost), t
+    print(f"mission_validation: {len(got)} trials, orders and costs equal "
+          "to the JAX example's", flush=True)
+
+
+def entry_points_on_card(wfc, smi, children):
+    """Phase 12: `entry()` and `mission_validation` in this process, each
+    with its kernel launches counted from 0, then the example children
+    (`start_example_children`) joined and held.  Returns (launches of
+    entry, launches of mission_validation, the children's runs)."""
+    wfc.reset_launches()
+    entry_on_card(smi)
+    launches_entry = dict(wfc.LAUNCHES)
+    wfc.reset_launches()
+    mission_validation_on_card()
+    launches_validation = dict(wfc.LAUNCHES)
+    runs = join_example_children(children)
+    check_example_runs(runs)
+    return launches_entry, launches_validation, runs
+
+
+def entry_points_probe():
+    """Phase 12 alone:
+    `python3 -c "import chip_smoke; chip_smoke.entry_points_probe()"`."""
+    from alore_legged_manipulator_tpu_torch.utils.precision import (
+        set_precision_policy)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(smi, flush=True)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from alore_legged_manipulator_tpu_torch.ops import wavefront_cuda as wfc
+    set_precision_policy()
+    children = start_example_children()
+    atexit.register(_kill_children, children)
+    _phase("the port's entry points")
+    t0 = time.perf_counter()
+    entry_points_on_card(wfc, smi, children)
+    print(f"phase 12 wall time: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -2563,6 +2830,12 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "smem" in line or "spill" in line:
             print("  ptxas:", line.strip(), flush=True)
+    # the example twins of phase 12 run in child processes beside the
+    # phases below; any still running when the script ends is killed
+    children = start_example_children()
+    atexit.register(_kill_children, children)
+    print("phase 12's children started: "
+          + ", ".join(name for name, *_ in children), flush=True)
 
     # ---- 2. kernels against their plain versions ----
     _phase("kernels against plain versions")
@@ -2689,11 +2962,9 @@ def main() -> int:
     launches_phys, _ = physics_fleet(mf, wfc, esdf, icr, cfg.backend)
     _phase("contact plant: card vs CPU")
     physics_card_vs_cpu()
-    _phase("known-map arrangement push on the card, contact plant (plan, "
-           f"first {KNOWN_MAP_PUSH_S} s)")
-    _, _, push_plan = known_map_push_on_card(wfc)
-    _phase("lidar-mapped arrangement mission on the card, contact plant")
-    _, launches_mapped = arrangement_on_card(wfc)
+    _phase("lidar-mapped arrangement mission on the card, contact plant "
+           f"(first object, plan and first {MAPPED_PUSH_S} s of its push)")
+    _, launches_mapped, push_plan = arrangement_on_card(wfc)
 
     # ---- 6. the planner simulation ----
     _phase("planner simulation, LTV-MPC, corridor (perspective)")
@@ -2749,7 +3020,16 @@ def main() -> int:
     print(f"phase 11 wall time: {time.perf_counter() - t_gold:.1f} s",
           flush=True)
 
-    # ---- 12. result lines ----
+    # ---- 12. the port's entry points ----
+    _phase("the port's entry points: entry(), mission_validation, the example "
+           "children")
+    t_entry = time.perf_counter()
+    launches_entry, launches_validation, example_runs = entry_points_on_card(
+        wfc, smi, children)
+    print(f"phase 12 wall time (the children's joins included): "
+          f"{time.perf_counter() - t_entry:.1f} s", flush=True)
+
+    # ---- 13. result lines ----
     kern = []
     for name, replaces in (
             ("wavefront_packed",
@@ -2771,6 +3051,10 @@ def main() -> int:
             launches_training=launches_train[name],
             launches_camera_mission=launches_cam[name],
             launches_mesh_mission=launches_mesh[name],
+            launches_entry=launches_entry[name],
+            launches_mission_validation=launches_validation[name],
+            **{f"launches_{child}_{r['example']}": r["kernel_launches"][name]
+               for child, rs in example_runs.items() for r in rs},
             max_abs_err=max(m["max_abs_err"], m100[name]["max_abs_err"],
                             m64[name]["max_abs_err"]),
             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],

@@ -134,6 +134,73 @@ def test_every_public_name_has_its_twin():
         assert names <= _public_names(jax_root / rel)
 
 
+def _reexports(init_path):
+    """(module, name, alias) of every relative `from .module import name
+    [as alias]` in a subpackage's `__init__.py`."""
+    for node in ast.walk(ast.parse(init_path.read_text())):
+        if isinstance(node, ast.ImportFrom) and node.level == 1:
+            for a in node.names:
+                yield node.module, a.name, a.asname or a.name
+
+
+_SUBPACKAGES = sorted(
+    p.parent.name for p in
+    (REPO / "alore_legged_manipulator_tpu").glob("*/__init__.py"))
+
+
+@pytest.mark.parametrize("sub", _SUBPACKAGES)
+def test_every_subpackage_reexport_has_its_twin(sub):
+    """Each name a JAX subpackage re-exports is re-exported by the port's
+    subpackage of the same name, and is the port module's own object."""
+    import importlib
+    jax_init = REPO / "alore_legged_manipulator_tpu" / sub / "__init__.py"
+    port_sub = importlib.import_module(f"{port_pkg.__name__}.{sub}")
+    for module, name, alias in _reexports(jax_init):
+        src = importlib.import_module(f"{port_pkg.__name__}.{sub}.{module}")
+        assert hasattr(port_sub, alias), f"{sub}: no {alias}"
+        assert getattr(port_sub, alias) is getattr(src, name), \
+            f"{sub}.{alias} is not {sub}.{module}.{name}"
+
+
+# the JAX package's user-facing examples (examples/*.py) with a twin in
+# the port's examples/ subpackage, and those without one and why
+EXAMPLE_TWINS = ("arrangement_mission.py", "mission_validation.py",
+                 "planner_sim.py", "train_and_deploy_highlevel.py")
+_BENCHMARK_PR = "a throughput bench: waits for the port's benchmark"
+_XLA_QUESTION = "asks an XLA question (compile cache, on-chip chained " \
+    "timing, shape buckets) with no eager counterpart"
+EXAMPLES_WITHOUT_TWIN = {
+    "bench_backend.py": _BENCHMARK_PR,
+    "bench_closed_loop.py": _BENCHMARK_PR,
+    "bench_frontend.py": _BENCHMARK_PR,
+    "bench_mapping.py": _BENCHMARK_PR,
+    "bench_mission_fleet.py": _BENCHMARK_PR,
+    "bench_mission_legs.py": _BENCHMARK_PR,
+    "bench_physics_env.py": _BENCHMARK_PR,
+    "precompile.py": _XLA_QUESTION,
+    "latency_onchip.py": _XLA_QUESTION,
+    "roofline_backend.py": _XLA_QUESTION,
+    "roofline_mission_twophase.py": _XLA_QUESTION,
+    "roofline_wavefront.py": _XLA_QUESTION,
+    "bucketing_study.py": _XLA_QUESTION,
+}
+
+
+def test_every_example_has_its_twin_or_a_reason():
+    examples = {p.name for p in (REPO / "examples").glob("*.py")}
+    assert not set(EXAMPLE_TWINS) & set(EXAMPLES_WITHOUT_TWIN)
+    assert examples == set(EXAMPLE_TWINS) | set(EXAMPLES_WITHOUT_TWIN), \
+        sorted(examples ^ (set(EXAMPLE_TWINS) | set(EXAMPLES_WITHOUT_TWIN)))
+    for name in EXAMPLE_TWINS:
+        twin = ROOT / "examples" / name
+        assert twin.exists(), f"no twin of examples/{name}"
+        tree = ast.parse(twin.read_text())
+        main = [n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "main"]
+        assert main and [a.arg for a in main[0].args.args] == ["argv"], name
+        assert '"--device"' in twin.read_text(), name
+
+
 def test_obstacle_terrain_config_defaults_match():
     from alore_legged_manipulator_tpu.world.scene import (
         ObstacleTerrainConfig as J)
