@@ -13,5 +13,11 @@ Each runs as `python -m alore_legged_manipulator_tpu_torch.examples.<name>`:
   kinematic or the contact plant;
 * `train_and_deploy_highlevel`: PPO training (or a restored checkpoint),
   the fixed-command tracking eval and the bus mission with the policy in
-  the loop.
+  the loop;
+* the throughput benches `bench_backend`, `bench_closed_loop`,
+  `bench_frontend`, `bench_mapping`, `bench_mission_fleet`,
+  `bench_mission_legs` and `bench_physics_env`: each reads its example's
+  environment variables with the same defaults, prints its lines (with
+  the device and its power limit) and computes each line in a function
+  of explicit sizes, eager, timed with a synchronize after the warm-up.
 """

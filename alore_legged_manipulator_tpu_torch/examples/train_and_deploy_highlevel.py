@@ -12,10 +12,11 @@ examples/train_and_deploy_highlevel.py).
 
 on `--device`.  `--ckpt-dir` writes and `--load-ckpt` reads the port's
 checkpoints, `<dir>/step_<iters>.npz` (`rl/runner.py::save_checkpoint`).
-The port cannot read orbax: the JAX example's own artifact
-`examples/artifacts/ckpt_physics_6000` resolves to its exported actor,
-`models/weights/highlevel_physics_6000.npz`, at step 6000 whatever
-`--iters` says.
+The port cannot read orbax: the JAX example's own artifacts
+`examples/artifacts/ckpt_physics_6000` and `ckpt_physics_1500` resolve to
+their exported actors, `models/weights/highlevel_physics_6000.npz` and
+`highlevel_physics_1500.npz`, at step 6000 or 1500 whatever `--iters`
+says.
 
     python -m alore_legged_manipulator_tpu_torch.examples.train_and_deploy_highlevel \
         [--iters N] [--num-envs B] [--physics] [--csv PATH] \
@@ -34,8 +35,7 @@ import numpy as np
 import torch
 
 from ..mission.object_fsm import FsmState
-from ..models.torch_convert import (HIGHLEVEL_PHYSICS_6000,
-                                    load_highlevel_actor)
+from ..models.torch_convert import HIGHLEVEL_PHYSICS, load_highlevel_actor
 from ..rl.env import env_reset, env_step
 from ..rl.eval import actor_mean, steady_state_tracking
 from ..rl.ppo import PpoState
@@ -48,9 +48,9 @@ from ..runtime.highlevel_controller import (HighLevelControllerNode,
 from ..utils.precision import resolve_device
 
 # the JAX example's orbax checkpoints (directory name -> step and the
-# port's export of its actor, or None where none was exported)
-ORBAX_ARTIFACTS = {"ckpt_physics_6000": (6000, HIGHLEVEL_PHYSICS_6000),
-                   "ckpt_physics_1500": (1500, None)}
+# port's export of its actor)
+ORBAX_ARTIFACTS = {f"ckpt_physics_{step}": (step, npz)
+                   for step, npz in HIGHLEVEL_PHYSICS.items()}
 EVAL_SEED = 123
 
 
@@ -62,11 +62,7 @@ def restore(path: str, step: int, device):
     known = ORBAX_ARTIFACTS.get(d.name)
     if known is not None and (d / f"step_{known[0]}").is_dir():
         art_step, npz = known
-        if npz is None:
-            raise FileNotFoundError(
-                f"{path} is an orbax checkpoint whose parameters were never "
-                "exported for the port (which cannot read orbax)")
-        return {"actor": load_highlevel_actor(device)}, art_step
+        return {"actor": load_highlevel_actor(device, npz)}, art_step
     models = load_models(load_checkpoint(path, step), device=device)
     return {"actor": models.actor, "critic": models.critic}, step
 

@@ -26,7 +26,8 @@ modules (`models/`):
   * `save_flax_npz` / `load_flax_npz` store a tree as one `.npz` whose
     keys are the '/'-joined paths; `load_highlevel_actor` builds the
     `PhysicActorCritic` of the committed trained weights
-    (`models/weights/highlevel_physics_6000.npz`).
+    (`models/weights/highlevel_physics_6000.npz`, or the 1500-iteration
+    `highlevel_physics_1500.npz`).
 
 Reference torch layout rules (the JAX package's, kept):
   * torch Linear stores (out, in); flax Dense wants (in, out)  -> W.T
@@ -52,6 +53,10 @@ WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "weights")
 HIGHLEVEL_PHYSICS_6000 = os.path.join(WEIGHTS_DIR,
                                       "highlevel_physics_6000.npz")
+# the exported actors of the JAX example's contact-plant run, by step
+HIGHLEVEL_PHYSICS = {6000: HIGHLEVEL_PHYSICS_6000,
+                     1500: os.path.join(WEIGHTS_DIR,
+                                        "highlevel_physics_1500.npz")}
 # the JAX package's seed-0 initial training parameters ({"actor",
 # "critic"}): the start of examples/artifacts/train_physics_6000.csv
 TRAIN_INIT_PHYSICS_SEED0 = os.path.join(WEIGHTS_DIR,
@@ -346,15 +351,15 @@ def load_flax_npz(path):
         return unflatten_flax({k: z[k] for k in z.files})
 
 
-def load_highlevel_actor(device=None):
+def load_highlevel_actor(device=None, path=HIGHLEVEL_PHYSICS_6000):
     """The trained contact-plant `PhysicActorCritic` (6000 PPO
     iterations of the JAX package's `examples/train_and_deploy_highlevel.py
-    --physics`), float32, in eval mode on `device` (None: the card)."""
+    --physics`, or the export at `path`: `HIGHLEVEL_PHYSICS[1500]`),
+    float32, in eval mode on `device` (None: the card)."""
     from ..utils.precision import resolve_device, set_precision_policy
     from .actor_critic import PhysicActorCritic
 
     set_precision_policy()
     actor = PhysicActorCritic()
-    actor.load_state_dict(state_dict_from_flax(
-        load_flax_npz(HIGHLEVEL_PHYSICS_6000)))
+    actor.load_state_dict(state_dict_from_flax(load_flax_npz(path)))
     return actor.to(resolve_device(device)).eval()

@@ -28,7 +28,8 @@ since the script started:
    (K2).  The kernels' launch counts are set to 0 just before and read
    just after: K1 must have run once per leg and once per correction
    round, K2 once.  Lanes delivered before the rounds must come out of
-   them bit for bit.
+   them bit for bit.  The run prints bench.py's mission line (its
+   `bench_mission` is this fleet: no warm-up, one timed iteration).
 4. The ring-direction fleet of the first slice, cut in depth to K=1,
    approach_ticks=300, push_ticks=100 (B=64, no corrections), with its
    own launch counts: its plans must reach their goals, its pushes follow
@@ -144,11 +145,30 @@ since the script started:
    inside the JAX value + 0.05 per axis, mission DELIVERED within
    0.5 m).  One `example:` JSON line a run: wall by phase, plans, ticks,
    dispatched operations per tick, kernel launches.
-13. The `kernels` JSON line (with K1 and K2's launches on each path, 0
+13. The throughput drivers (`alore_legged_manipulator_tpu_torch/bench.py`,
+   the twin of the repo's bench.py, and the example benches'
+   twins under `.../examples/bench_*.py`), every line once at the cut
+   sizes of BENCH_CUTS through its line function, one `bench:` JSON line
+   each with its kernel launches (counted from 0): the NMPC RTI line at
+   B=16384 (chain 1) and its peak memory, the B=1 latency line, the
+   wavefront line at B=16384 (K1), the closed loop, the contact env,
+   the mapping loop and the front-end table at B=1024 (K2) in this
+   process; the back-end lines (B=2 and one B=1 plan), the mission legs
+   (B=2) and the mission fleet (B=2, K=1, redispatched corrections; K1)
+   in a child process started after phase 1.  K1 on the first 1024
+   lanes of the wavefront line's 16384x100x100 batch and K2 on the
+   front-end line's 1024-lane batch must be bit-identical to their
+   plain versions (CUDA-event times, bounds; K1 also over the whole
+   16384 lanes).  The non-timing fields are held: finite, the back
+   end's plans on goal (1.5x the ALM tolerance) and collision-free, the
+   mission fleet's `delivered_frac` >= 0.85, and K1 / K2 launched on the
+   lines whose path holds them.  `bench_probe()` runs it alone.
+14. The `kernels` JSON line (with K1 and K2's launches on each path, 0
    on the planner simulation, the mapped mission, the served policy,
    training, the camera mission and the entry points, whose paths hold no
-   wavefront; K1 once on the mesh mission), the script's wall time, and
-   as the last line {"ok": true, "device": {...}}.
+   wavefront; K1 once on the mesh mission; the bench lines' launches and
+   the bench shapes' comparisons), the script's wall time, and as the
+   last line {"ok": true, "device": {...}}.
 
 Fails (non-zero exit, no result line) without a CUDA card or without the
 package beside it.  Imports nothing of JAX.
@@ -2798,6 +2818,271 @@ def entry_points_probe():
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# 13. the throughput drivers (bench.py's twin and the example benches'),
+#     every line once at cut sizes
+# ---------------------------------------------------------------------------
+
+# the cut sizes of phase 13, as arguments of each line's function, and
+# printed as `cut` beside each of its `bench:` lines (the full sizes are
+# the JAX benches' defaults, run by `python -m
+# alore_legged_manipulator_tpu_torch.bench` and the example twins)
+BENCH_CUTS = {
+    "nmpc_rti": dict(B=16384, chain=1, iters=1),
+    "nmpc_latency": dict(chain=2, calls=2),
+    "wavefront": dict(B=16384, reps=1),
+    "closed_loop": dict(fleet=1024, chain=2, iters=1),
+    "physics_env": dict(B=4096, chain=2, reps=1),
+    "mapping": dict(B=4, K=2, reps=1),
+    "frontend": dict(sizes=[1024], calls=1),
+    # the child's: each a launch-bound B=1-2 plan or a whole mission
+    "backend": dict(B=2, chain=1, lat_goals=1, reps=1, lat_reps=1,
+                    warmup=False),
+    "backend_fleet": dict(B=2, reps=1, first_call=False),
+    "mission_legs": dict(B=2, n_ticks=20, reps=1, first_call=False),
+    "mission_fleet": dict(B=2, K=1, corr=300, mode="redispatch", iters=1,
+                          approach_ticks=300, push_ticks=400,
+                          first_call=False),
+}
+BENCH_CHILD_TIMEOUT_S = 600
+
+
+def _bench_run(name, fn, wfc):
+    """One line at its cut size with the wavefront kernels' launches
+    counted from 0: (line, out, launches)."""
+    wfc.reset_launches()
+    t0 = time.perf_counter()
+    line, out = fn(**BENCH_CUTS[name], device="cuda")
+    torch.cuda.synchronize()
+    return line, out, dict(wfc.LAUNCHES), time.perf_counter() - t0
+
+
+def bench_child(out_path):
+    """The child of phase 13: the launch-bound lines (back end, mission
+    legs, mission fleet) at their cut sizes; one `bench:` JSON line each,
+    written to `out_path` as JSON."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.set_num_threads(1)
+    from alore_legged_manipulator_tpu_torch import bench as tb
+    from alore_legged_manipulator_tpu_torch.examples import (
+        bench_backend, bench_mission_fleet, bench_mission_legs)
+    from alore_legged_manipulator_tpu_torch.ops import wavefront_cuda as wfc
+    runs = {}
+    for name, fn in (("backend", tb.backend_line),
+                     ("backend_fleet", bench_backend.backend_fleet_line),
+                     ("mission_legs", bench_mission_legs.legs_line),
+                     ("mission_fleet",
+                      bench_mission_fleet.mission_fleet_line)):
+        line, out, launches, wall = _bench_run(name, fn, wfc)
+        runs[name] = {"cut": BENCH_CUTS[name], "line": line,
+                      "out": _jsonable(
+                          {k: (v.tolist() if isinstance(v, np.ndarray)
+                               else v) for k, v in out.items()}),
+                      "launches": launches, "wall_s": wall}
+        print("bench: " + json.dumps({"name": name, **runs[name]}),
+              flush=True)
+    with open(out_path, "w") as f:
+        json.dump(runs, f)
+
+
+def start_bench_child():
+    """Starts the child of phase 13; returns [(name, process, output
+    path, log path)] as `start_example_children` does."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "build", "chip_smoke_examples")
+    os.makedirs(out_dir, exist_ok=True)
+    out, log = (os.path.join(out_dir, f"bench_child.{ext}")
+                for ext in ("json", "log"))
+    for p in (out, log):
+        if os.path.exists(p):
+            os.remove(p)
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; "
+             f"chip_smoke.bench_child({out!r})"],
+            cwd=root, stdout=f, stderr=subprocess.STDOUT)
+    return [("bench_child", proc, out, log)]
+
+
+def join_bench_child(child):
+    """Waits for the child of phase 13 (BENCH_CHILD_TIMEOUT_S), fails if
+    it exited non-zero; returns its runs."""
+    (name, proc, out, log), = child
+    try:
+        rc = proc.wait(timeout=BENCH_CHILD_TIMEOUT_S)
+    finally:
+        _kill_children(child)
+    if rc != 0:
+        with open(log) as f:
+            print(f.read()[-6000:], flush=True)
+        raise AssertionError(f"{name} exited {rc}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def bench_kernel_checks(wf, wfc, tb, bf_row):
+    """K1 on the first 1024 lanes of the wavefront line's 16384x100x100
+    batch and K2 on the front-end line's 1024-lane batch, bit-identical
+    to their plain versions, timed with CUDA events beside their bounds;
+    K1 also over the whole 16384-lane batch, bit-identical there too.
+    Returns {kernel: {label: measurements}}."""
+    from alore_legged_manipulator_tpu_torch.ops.wavefront_bench import (
+        bound, time_ms)
+    blocked = tb.wavefront_bench_map(torch.device("cuda"))
+    s, g = tb.wavefront_starts_goals(16384, torch.device("cuda"))
+    n = 1024
+    occ = blocked.expand(n, *blocked.shape).contiguous().cpu().numpy()
+    m_wf = check_kernels(wf, wfc, "bench_wavefront 1024 of 16384x100x100",
+                         occ, g[:n].cpu().numpy(), s[:n].cpu().numpy(),
+                         path_len=256, iters=5)
+    m_fe = check_kernels(wf, wfc, "bench_frontend 1024x100x100", occ,
+                         bf_row["goals"].cpu().numpy(),
+                         bf_row["starts"].cpu().numpy(), path_len=256,
+                         iters=5)
+    blk = blocked.expand(16384, *blocked.shape).contiguous()
+    B, H, W = blk.shape
+    # the whole batch at the line's launch size: the plain version run
+    # once (and timed so), K1's field, packed word and sweep counts held
+    # to it bit for bit
+    d_k, p_k, sweeps = wfc.wavefront_packed_cuda(blk, g, return_sweeps=True)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    d_p, p_p, sweeps_p = wf.wavefront_packed_torch(blk, g,
+                                                   return_sweeps=True)
+    e1.record()
+    e1.synchronize()
+    plain_ms = e0.elapsed_time(e1)
+    label = f"bench_wavefront {B}x{H}x{W}"
+    assert torch.equal(d_k, d_p), f"{label}: K1 dist differs from plain"
+    assert torch.equal(p_k, p_p), f"{label}: K1 packed differs from plain"
+    assert torch.equal(sweeps, sweeps_p), f"{label}: K1 sweep counts differ"
+    err = float((d_k - d_p).abs().max())
+    # the line's other stage, the eager 256-step descent on K1's word
+    descent_ms = time_ms(lambda: wf.extract_path_turns(p_k, s, 256), 1,
+                         warmup=1)
+    del d_k, p_k, d_p, p_p
+    ms = time_ms(lambda: wfc.wavefront_packed_cuda(blk, g), 3, warmup=1)
+    bound_ms, bound_by = bound(B, H, W, int(sweeps.to(torch.int64).sum()),
+                               True)
+    full = dict(shape=f"{B}x{H}x{W}", ms=ms, plain_ms=plain_ms,
+                max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+                descent_ms=descent_ms)
+    print(f"{label} wavefront_packed: bit-identical to plain; "
+          + json.dumps(full), flush=True)
+    return {"wavefront_packed": {"bench_wavefront_1024": m_wf[
+                "wavefront_packed"], "bench_wavefront_16384": full},
+            "octile_distance_field": {"bench_frontend_1024": m_fe[
+                "octile_distance_field"]}}
+
+
+def check_bench_lines(runs):
+    """The non-timing fields of every line: finite, the back end's plans
+    on goal (tests/test_backend.py's 1.5x the ALM tolerance) and free of
+    collision, the mission fleet's `delivered_frac` at least phase 3's
+    floor (0.85), and each kernel of a line's path launched."""
+    from alore_legged_manipulator_tpu_torch.planner.backend import (
+        BackendConfig)
+    goal_tol = BackendConfig().alm.tolerance * 1.5
+    for name, r in runs.items():
+        for k, v in r["line"].items():
+            if isinstance(v, float):
+                assert np.isfinite(v), (name, k, v)
+    out = runs["nmpc_rti"]["out"]
+    assert np.isfinite(out["checksum"]), out
+    assert np.isfinite(runs["nmpc_latency"]["out"]["checksum"])
+    assert runs["wavefront"]["out"]["path_cells"] > 0
+    bk = runs["backend"]["out"]
+    assert bk["collisions"] == 0 and bk["goal_err_max"] < goal_tol, bk
+    assert np.isfinite(bk["lat_checksum"]), bk
+    for name in ("backend_fleet", "mission_legs"):
+        line = runs[name]["line"]
+        assert line["collision_frac"] == 0.0, (name, line)
+        assert max(runs[name]["out"]["final_xy_err"]) < goal_tol, (name, line)
+    assert runs["mission_fleet"]["line"]["delivered_frac"] >= 0.85, \
+        runs["mission_fleet"]["line"]
+    assert all(r["n_ok"] == r["B"] for r in runs["frontend"]["rows"])
+    for name, kernel in (("wavefront", "wavefront_packed"),
+                         ("mission_fleet", "wavefront_packed"),
+                         ("frontend", "octile_distance_field")):
+        assert runs[name]["launches"][kernel] >= 1, \
+            f"{name}: {kernel} was not launched"
+
+
+def bench_lines_on_card(wf, wfc, child):
+    """Phase 13: the quick lines in this process, the kernel comparisons
+    at the benches' shapes, then the child's lines joined; every line
+    printed as a `bench:` JSON line and held by `check_bench_lines`.
+    Returns ({line: launches}, the kernel comparisons)."""
+    from alore_legged_manipulator_tpu_torch import bench as tb
+    from alore_legged_manipulator_tpu_torch.examples import (
+        bench_closed_loop, bench_frontend, bench_mapping, bench_physics_env)
+    runs = {}
+    for name, fn in (("nmpc_rti", tb.nmpc_rti_line),
+                     ("nmpc_latency", tb.nmpc_latency_line),
+                     ("wavefront", tb.wavefront_line),
+                     ("closed_loop", bench_closed_loop.closed_loop_line),
+                     ("physics_env", bench_physics_env.physics_env_line),
+                     ("mapping", bench_mapping.mapping_line)):
+        line, out, launches, wall = _bench_run(name, fn, wfc)
+        if name == "physics_env":       # its line is the JAX bench's text
+            line, out = {"text": line, **{k: v for k, v in out.items()
+                                          if k != "state"}}, {}
+        out = {k: float(v) for k, v in out.items()
+               if isinstance(v, (int, float))}
+        runs[name] = {"cut": BENCH_CUTS[name], "line": line, "out": out,
+                      "launches": launches, "wall_s": wall}
+        print("bench: " + json.dumps({"name": name, **runs[name]}),
+              flush=True)
+    print(f"nmpc_rti at B=16384: peak memory "
+          f"{runs['nmpc_rti']['out']['peak_mem_bytes'] / 2**30:.2f} GiB",
+          flush=True)
+    wfc.reset_launches()
+    t0 = time.perf_counter()
+    rows = bench_frontend.frontend_rows(**BENCH_CUTS["frontend"],
+                                        device="cuda")
+    torch.cuda.synchronize()
+    runs["frontend"] = {
+        "cut": BENCH_CUTS["frontend"], "line": {"rows": [{k: v for k, v in r.items() if k not in (
+            "host_flats", "starts", "goals")} for r in rows]},
+        "launches": dict(wfc.LAUNCHES), "wall_s": time.perf_counter() - t0}
+    print("bench: " + json.dumps({"name": "frontend", **runs["frontend"]}),
+          flush=True)
+    kernels = bench_kernel_checks(wf, wfc, tb, rows[-1])
+    t0 = time.perf_counter()
+    child_runs = join_bench_child(child)
+    print(f"phase 13's child joined after {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for name, r in child_runs.items():
+        print("bench: " + json.dumps({"name": name, **r}), flush=True)
+    runs.update(child_runs)
+    runs["frontend"]["rows"] = runs["frontend"]["line"]["rows"]
+    check_bench_lines(runs)
+    return {name: r["launches"] for name, r in runs.items()}, kernels
+
+
+def bench_probe():
+    """Phase 13 alone:
+    `python3 -c "import chip_smoke; chip_smoke.bench_probe()"`."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from alore_legged_manipulator_tpu_torch.ops import wavefront as wf
+    from alore_legged_manipulator_tpu_torch.ops import wavefront_cuda as wfc
+    from alore_legged_manipulator_tpu_torch.utils.precision import (
+        set_precision_policy)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+    set_precision_policy()
+    wfc.build()
+    child = start_bench_child()
+    atexit.register(_kill_children, child)
+    _phase("the throughput drivers at cut sizes")
+    t0 = time.perf_counter()
+    bench_lines_on_card(wf, wfc, child)
+    print(f"phase 13 wall time: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -2836,6 +3121,9 @@ def main() -> int:
     atexit.register(_kill_children, children)
     print("phase 12's children started: "
           + ", ".join(name for name, *_ in children), flush=True)
+    bench_child_proc = start_bench_child()
+    atexit.register(_kill_children, bench_child_proc)
+    print("phase 13's child started", flush=True)
 
     # ---- 2. kernels against their plain versions ----
     _phase("kernels against plain versions")
@@ -2934,6 +3222,16 @@ def main() -> int:
         "simulated_s_per_mission": sim_s,
         "missions_per_s": B / (wall_fleet + wall_rounds),
         "before_rounds": before, "after_rounds": after}), flush=True)
+    # bench.py's mission line (`bench_mission`: the same fleet, profile
+    # and rounds) from this run: no warm-up, one timed iteration
+    from alore_legged_manipulator_tpu_torch.bench import mission_summary
+    print("bench: " + json.dumps({
+        "name": "mission", "of": "phase 3's fleet and rounds, no warm-up, "
+        "1 timed iteration, no start jitter",
+        "line": mission_summary(B, K, [wall_fleet + wall_rounds], res,
+                                miss_counts, cfg, corr_ticks,
+                                torch.device("cuda")),
+        "launches": launches}), flush=True)
     # lanes delivered before the rounds are untouched by them
     keep = base.delivered
     for name in ("object_err", "track_err_max", "collision", "delivered"):
@@ -3029,7 +3327,16 @@ def main() -> int:
     print(f"phase 12 wall time (the children's joins included): "
           f"{time.perf_counter() - t_entry:.1f} s", flush=True)
 
-    # ---- 13. result lines ----
+    # ---- 13. the throughput drivers at cut sizes ----
+    _phase("the throughput drivers (bench.py's twin, the example benches) at "
+           "cut sizes")
+    t_bench = time.perf_counter()
+    launches_bench, bench_kernels = bench_lines_on_card(wf, wfc,
+                                                        bench_child_proc)
+    print(f"phase 13 wall time (the child's join included): "
+          f"{time.perf_counter() - t_bench:.1f} s", flush=True)
+
+    # ---- 14. result lines ----
     kern = []
     for name, replaces in (
             ("wavefront_packed",
@@ -3055,14 +3362,23 @@ def main() -> int:
             launches_mission_validation=launches_validation[name],
             **{f"launches_{child}_{r['example']}": r["kernel_launches"][name]
                for child, rs in example_runs.items() for r in rs},
-            max_abs_err=max(m["max_abs_err"], m100[name]["max_abs_err"],
-                            m64[name]["max_abs_err"]),
+            launches_bench_mission=launches[name],
+            **{f"launches_bench_{line}": n[name]
+               for line, n in launches_bench.items()},
+            max_abs_err=max([m["max_abs_err"], m100[name]["max_abs_err"],
+                             m64[name]["max_abs_err"]]
+                            + [b["max_abs_err"]
+                               for b in bench_kernels[name].values()]),
             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=None, shape=m["shape"],
             ms_64x80x80=m64[name]["ms"], plain_ms_64x80x80=m64[name]["plain_ms"],
             bound_ms_64x80x80=m64[name]["bound_ms"],
             ms_100x100=m100[name]["ms"], plain_ms_100x100=m100[name]["plain_ms"],
-            bound_ms_100x100=m100[name]["bound_ms"]))
+            bound_ms_100x100=m100[name]["bound_ms"],
+            bench_shapes={label: {k: b[k] for k in (
+                "shape", "ms", "plain_ms", "max_abs_err", "bound_ms",
+                "bound_by")}
+                for label, b in bench_kernels[name].items()}))
     print(json.dumps({"kernels": kern}), flush=True)
     print(f"script wall time: {time.perf_counter() - T_START:.1f} s",
           flush=True)

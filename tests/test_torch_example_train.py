@@ -15,7 +15,11 @@ at a tiny size on the CPU.
   (`models/weights/highlevel_physics_6000.npz`); with it the whole
   script runs as the example does (256-lane eval, bus mission) and the
   mission is delivered within the example's 0.5 m.  The 1500-iteration
-  artifact has no exported weights and raises.
+  artifact restores its export (`highlevel_physics_1500.npz`): its
+  parameters equal the orbax checkpoint's and its mean actions the JAX
+  actor's on a seeded batch of contact-plant histories within 1e-5
+  (`tests/test_torch_models.py`'s tolerance for the 6000 one).  An
+  orbax directory with no export raises.
 * The bus mission of the two tiny runs, whose policy has trained one
   iteration, is cut to 50 ticks (it would run its 20000).
 * Without a card the twin raises unless asked for the CPU.
@@ -95,9 +99,49 @@ def test_jax_artifact_restores_the_shipped_actor():
     assert got["mission_err"] < 0.5
 
 
-def test_unexported_artifact_raises():
+def test_unexported_artifact_raises(tmp_path):
+    """An orbax checkpoint the port has no export of (a copy of the 1500
+    one under another name) is not a port checkpoint: it raises."""
+    import shutil
+    other = tmp_path / "ckpt_physics_3000"
+    shutil.copytree(ARTIFACTS / "ckpt_physics_1500" / "step_1500",
+                    other / "step_3000")
     with pytest.raises(FileNotFoundError):
-        twin.restore(str(ARTIFACTS / "ckpt_physics_1500"), 1500, "cpu")
+        twin.restore(str(other), 3000, "cpu")
+
+
+def test_jax_1500_artifact_restores_the_jax_actor():
+    import jax
+    import jax.numpy as jnp
+    from alore_legged_manipulator_tpu.models.actor_critic import (
+        PhysicActorCritic as JAC)
+    from alore_legged_manipulator_tpu.models.gnn import (
+        build_interaction_graph as j_build)
+    from alore_legged_manipulator_tpu_torch.models.gnn import GraphBatch
+    from tests.export_highlevel_weights import (checkpoint_path,
+                                                restore_params)
+    from tests.test_torch_models import _contact_env_inputs
+
+    got, step = twin.restore(str(ARTIFACTS / "ckpt_physics_1500"), 1500,
+                             "cpu")
+    assert step == 1500 and set(got) == {"actor"}
+    jparams = restore_params(checkpoint_path(1500))["actor"]
+    flat = flatten_flax(flax_from_state_dict(got["actor"].state_dict()))
+    ref = flatten_flax(jparams)
+    assert flat.keys() == ref.keys()
+    for k in ref:
+        np.testing.assert_array_equal(flat[k], ref[k], err_msg=k)
+    obs, feats = _contact_env_inputs()
+    g = jax.vmap(j_build)(*feats)
+    jm, _, jv = (np.asarray(a) for a in
+                 JAC().apply(jparams, jnp.asarray(obs), g))
+    with torch.no_grad():
+        m, _, v = got["actor"](
+            torch.as_tensor(obs),
+            GraphBatch(torch.as_tensor(np.asarray(g.nodes)),
+                       torch.as_tensor(np.asarray(g.edge_attr))))
+    np.testing.assert_allclose(m.numpy(), jm, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(v.numpy(), jv, rtol=1e-5, atol=1e-5)
 
 
 def test_default_device_is_the_card(monkeypatch):

@@ -16,6 +16,10 @@ its configs keep the JAX package's field names and defaults.
   `FsmConfig`), whose dtype field names the same dtype, and the host
   dataclasses (`E2EScenario`: the same fields, the same defaults where
   there are any).
+* Every JAX example has its twin in the port's `examples/` (the seven
+  throughput benches among them) or a stated reason, and the repo's
+  `bench.py` its twin in the package with the same metric names; the
+  throughput twins use no CUDA graphs and no `torch.compile`.
 """
 import ast
 import dataclasses
@@ -68,7 +72,11 @@ def test_module_list_covers_the_slice():
               "parallel.scaling", "parallel.dryrun", "utils.profiling",
               "solvers.minco_s4", "ops.roots", "ops.sdlp", "world.scene",
               "world.octomap_io", "runtime.transport",
-              "runtime.native_transport", "utils.viz"):
+              "runtime.native_transport", "utils.viz", "bench",
+              "examples.bench_backend", "examples.bench_closed_loop",
+              "examples.bench_frontend", "examples.bench_mapping",
+              "examples.bench_mission_fleet", "examples.bench_mission_legs",
+              "examples.bench_physics_env"):
         assert f"{port_pkg.__name__}.{m}" in mods
 
 
@@ -165,18 +173,14 @@ def test_every_subpackage_reexport_has_its_twin(sub):
 # the JAX package's user-facing examples (examples/*.py) with a twin in
 # the port's examples/ subpackage, and those without one and why
 EXAMPLE_TWINS = ("arrangement_mission.py", "mission_validation.py",
-                 "planner_sim.py", "train_and_deploy_highlevel.py")
-_BENCHMARK_PR = "a throughput bench: waits for the port's benchmark"
+                 "planner_sim.py", "train_and_deploy_highlevel.py",
+                 "bench_backend.py", "bench_closed_loop.py",
+                 "bench_frontend.py", "bench_mapping.py",
+                 "bench_mission_fleet.py", "bench_mission_legs.py",
+                 "bench_physics_env.py")
 _XLA_QUESTION = "asks an XLA question (compile cache, on-chip chained " \
     "timing, shape buckets) with no eager counterpart"
 EXAMPLES_WITHOUT_TWIN = {
-    "bench_backend.py": _BENCHMARK_PR,
-    "bench_closed_loop.py": _BENCHMARK_PR,
-    "bench_frontend.py": _BENCHMARK_PR,
-    "bench_mapping.py": _BENCHMARK_PR,
-    "bench_mission_fleet.py": _BENCHMARK_PR,
-    "bench_mission_legs.py": _BENCHMARK_PR,
-    "bench_physics_env.py": _BENCHMARK_PR,
     "precompile.py": _XLA_QUESTION,
     "latency_onchip.py": _XLA_QUESTION,
     "roofline_backend.py": _XLA_QUESTION,
@@ -199,6 +203,43 @@ def test_every_example_has_its_twin_or_a_reason():
                 if isinstance(n, ast.FunctionDef) and n.name == "main"]
         assert main and [a.arg for a in main[0].args.args] == ["argv"], name
         assert '"--device"' in twin.read_text(), name
+
+
+def _metrics(path):
+    """The `metric` values of every `json.dumps({...})` literal of a file."""
+    out = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Dict):
+            keys = [k.value if isinstance(k, ast.Constant) else None
+                    for k in node.keys]
+            if "metric" in keys:
+                out.append(node.values[keys.index("metric")].value)
+    return sorted(out)
+
+
+def test_bench_has_its_twin_in_the_package():
+    """The repo's `bench.py` has its twin in the package (not at the repo
+    root, as `entry.py` is the twin of `__graft_entry__.py`): `main(argv)`
+    with `--device`, and the same five metric names."""
+    twin = ROOT / "bench.py"
+    assert twin.exists()
+    tree = ast.parse(twin.read_text())
+    main = [n for n in tree.body
+            if isinstance(n, ast.FunctionDef) and n.name == "main"]
+    assert main and [a.arg for a in main[0].args.args] == ["argv"]
+    assert '"--device"' in twin.read_text()
+    assert len(_metrics(REPO / "bench.py")) == 5
+    assert _metrics(twin) == _metrics(REPO / "bench.py")
+
+
+def test_benches_use_no_graphs_or_compile():
+    """The throughput twins time the eager port: no CUDA graphs, no
+    torch.compile."""
+    for path in [ROOT / "bench.py"] + sorted(
+            (ROOT / "examples").glob("bench_*.py")):
+        text = path.read_text()
+        for word in ("CUDAGraph", "cuda.graph", "torch.compile"):
+            assert word not in text, f"{path.name} uses {word}"
 
 
 def test_obstacle_terrain_config_defaults_match():
