@@ -28,6 +28,7 @@ import torch
 
 from ..core.dynamics import ICRParams, icr_dynamics
 from ..ops.qp import box_qp_pncg, box_qp_pncg_op
+from ..utils.profiling import span
 
 NX = 3
 NU = 2
@@ -501,9 +502,11 @@ def nmpc_rti_step(carry: NmpcCarry, x_est, ref_x, ref_u, icr: ICRParams,
     with the previous tick's estimate); None = same-tick semantics.
     Returns (new_carry, u_cmd (B, 2), x_pred, u_pred)."""
     lin_icr = icr if prep_icr is None else prep_icr
-    prep = _linearize(carry, lin_icr, cfg)
-    new_carry, x_pred, u_pred = feedback(carry, prep, x_est, ref_x, ref_u,
-                                         icr, cfg)
+    with span("nmpc.linearize"):
+        prep = _linearize(carry, lin_icr, cfg)
+    with span("nmpc.feedback"):
+        new_carry, x_pred, u_pred = feedback(carry, prep, x_est, ref_x,
+                                             ref_u, icr, cfg)
     return new_carry, u_pred[:, cfg.delay_num], x_pred, u_pred
 
 

@@ -36,6 +36,7 @@ from ..control.tracked_traj import TrackedTraj, ref_points
 from ..core.dynamics import ICRParams
 from ..estimator.icr_ekf import EkfConfig, ekf_predict, ekf_update
 from ..utils.precision import resolve_device
+from ..utils.profiling import span
 from ..world.plant import PlantConfig, plant_step
 
 
@@ -200,25 +201,31 @@ def batched_tracking_step(tt: TrackedTraj, true_icr: ICRParams,
     def fn(plants, ekfs, carries, u_prevs, noise, t):
         dtype, dev = plants.xytheta.dtype, plants.xytheta.device
         B = plants.xytheta.shape[0]
-        lanes = _lanes(tt, B, dev)
-        t = float(torch.as_tensor(t, dtype=dtype))
-        u_prevs = torch.as_tensor(u_prevs).to(dtype)
-        est_pose = ekfs.x[:, :3]
-        icr_est = ICRParams(yr=ekfs.x[:, 3], yl=ekfs.x[:, 4],
-                            xv=ekfs.x[:, 5])
-        ref_x, ref_u = ref_points(lanes, t, nmpc_cfg.horizon, dt,
-                                  est_pose[:, 2])
-        carries, u_cmd, _, _ = nmpc_rti_step(carries, est_pose, ref_x, ref_u,
-                                             icr_est, nmpc_cfg)
-        u_applied = torch.stack([u_prevs[:, 1], u_prevs[:, 0]], dim=1)
-        ekfs = ekf_predict(ekfs, u_applied, dt, ekf_cfg)
-        gen = noise if isinstance(noise, torch.Generator) else None
-        for j in range(substeps):
-            draw = (noise[:, j] if isinstance(noise, torch.Tensor)
-                    else None)
-            plants = plant_step(plants, u_applied, true_icr, dt / substeps,
-                                plant_cfg, generator=gen, noise=draw)
-        ekfs = ekf_update(ekfs, plants.xytheta, ekf_cfg)
+        with span("tick", lanes=B):
+            lanes = _lanes(tt, B, dev)
+            t = float(torch.as_tensor(t, dtype=dtype))
+            u_prevs = torch.as_tensor(u_prevs).to(dtype)
+            est_pose = ekfs.x[:, :3]
+            icr_est = ICRParams(yr=ekfs.x[:, 3], yl=ekfs.x[:, 4],
+                                xv=ekfs.x[:, 5])
+            with span("ref"):
+                ref_x, ref_u = ref_points(lanes, t, nmpc_cfg.horizon, dt,
+                                          est_pose[:, 2])
+            carries, u_cmd, _, _ = nmpc_rti_step(carries, est_pose, ref_x,
+                                                 ref_u, icr_est, nmpc_cfg)
+            u_applied = torch.stack([u_prevs[:, 1], u_prevs[:, 0]], dim=1)
+            with span("ekf.predict"):
+                ekfs = ekf_predict(ekfs, u_applied, dt, ekf_cfg)
+            gen = noise if isinstance(noise, torch.Generator) else None
+            with span("plant"):
+                for j in range(substeps):
+                    draw = (noise[:, j] if isinstance(noise, torch.Tensor)
+                            else None)
+                    plants = plant_step(plants, u_applied, true_icr,
+                                        dt / substeps, plant_cfg,
+                                        generator=gen, noise=draw)
+            with span("ekf.update"):
+                ekfs = ekf_update(ekfs, plants.xytheta, ekf_cfg)
         return plants, ekfs, carries, u_cmd, noise
 
     return fn

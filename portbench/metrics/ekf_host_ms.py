@@ -1,0 +1,7 @@
+"""Host self time of the ICR-EKF, predict and update together (spans
+`ekf.predict`, `ekf.update`), median ms per traced tick."""
+from portbench import spans
+
+
+def read(rec):
+    return spans.span_ms("self_ms", "ekf.predict", "ekf.update")

@@ -1,0 +1,7 @@
+"""Host self time of the plant's substeps (span `plant`), median ms per
+traced tick."""
+from portbench import spans
+
+
+def read(rec):
+    return spans.span_ms("self_ms", "plant")
