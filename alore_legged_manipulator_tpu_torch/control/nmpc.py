@@ -10,10 +10,12 @@ The default path (integrator "exact", condense_mode "triangular",
 qp_mode "matfree"): the exact step's Jacobians are unit upper
 triangular, so the condensing map C and the QP Hessian C'QC + R are
 applied through prefix / suffix sums of per-stage scalars and never
-materialized.  The other modes build C explicitly, by a sequential scan
-("seq"), a log-depth doubling scan ("assoc") or the closed triangular
-form, and solve the dense 100-variable box QP (qp_mode "dense");
-integrator "rk4" linearizes an RK4 step by forward-mode autodiff.
+materialized.  On the card its feedback is one hand-written kernel
+(csrc/nmpc_feedback.cu); `_feedback_matfree` is its plain version.  The
+other modes build C explicitly, by a sequential scan ("seq"), a
+log-depth doubling scan ("assoc") or the closed triangular form, and
+solve the dense 100-variable box QP (qp_mode "dense"); integrator "rk4"
+linearizes an RK4 step by forward-mode autodiff.
 
 Every tensor has a leading lane axis; ICR fields may be floats or (B,)
 tensors (the per-lane EKF estimates).
@@ -27,7 +29,8 @@ import numpy as np
 import torch
 
 from ..core.dynamics import ICRParams, icr_dynamics
-from ..ops.qp import box_qp_pncg, box_qp_pncg_op
+from ..ops.nmpc_feedback_cuda import nmpc_feedback_cuda
+from ..ops.qp import PNCG_REG, box_qp_pncg, box_qp_pncg_op
 from ..utils.profiling import span
 
 NX = 3
@@ -437,8 +440,22 @@ def feedback(carry: NmpcCarry, prep, x_est, ref_x, ref_u, icr: ICRParams,
     inputs (last column unused for the stage cost, the ACADO yN layout).
     Returns (new_carry, predicted states (B, N+1, 3), predicted inputs
     (B, N, 2)).
+
+    On the matrix-free triangular path a CUDA carry runs the whole
+    feedback as one hand-written kernel (`ops/nmpc_feedback_cuda.py`),
+    which raises on what it does not take; a CPU carry runs
+    `_feedback_matfree`.
     """
     if cfg.qp_mode == "matfree" and cfg.condense_mode == "triangular":
+        if carry.x_traj.is_cuda:
+            x_new, u_new = nmpc_feedback_cuda(
+                carry.x_traj, carry.u_traj, prep, x_est, ref_x, ref_u,
+                q_diag=cfg.q_diag, r_diag=cfg.r_diag,
+                state_cost_scaling=cfg.state_cost_scaling,
+                input_cost_scaling=cfg.input_cost_scaling, u_min=cfg.u_min,
+                u_max=cfg.u_max, qp_iters=cfg.qp_iters,
+                cg_iters=cfg.cg_iters, reg=PNCG_REG)
+            return NmpcCarry(x_traj=x_new, u_traj=u_new), x_new, u_new
         return _feedback_matfree(carry, prep, x_est, ref_x, ref_u, cfg)
     n = cfg.horizon
     dtype, dev = carry.x_traj.dtype, carry.x_traj.device

@@ -23,6 +23,9 @@ import torch
 
 from ..utils.precision import hdot
 
+# the Tikhonov term of the PNCG solves (box_qp_pncg, box_qp_pncg_op)
+PNCG_REG = 1e-7
+
 
 def _safe(x):
     return torch.where(torch.abs(x) > 1e-30, x, torch.full_like(x, 1e-30))
@@ -72,7 +75,7 @@ def box_qp_projected_newton(H, g, lb, ub, z0=None, iters: int = 12,
 
 
 def box_qp_pncg(H, g, lb, ub, z0=None, iters: int = 6, cg_iters: int = 25,
-                reg: float = 1e-7):
+                reg: float = PNCG_REG):
     """Projected Newton with CG inner solves on a dense H (B, n, n): the
     fixed point of box_qp_projected_newton without a factorization."""
     return box_qp_pncg_op(lambda p: _hmv(H, p),
@@ -99,7 +102,7 @@ def box_qp_admm(H, g, lb, ub, z0=None, rho: float = 1.0, iters: int = 100,
 
 
 def box_qp_pncg_op(matvec, diag_h, g, lb, ub, z0=None, iters: int = 6,
-                   cg_iters: int = 25, reg: float = 1e-7):
+                   cg_iters: int = 25, reg: float = PNCG_REG):
     """box_qp_pncg with the Hessian as an OPERATOR: matvec(p (..., n))
     -> H p (any leading axes after the lane axis); diag_h the diagonal."""
     z = torch.zeros_like(g) if z0 is None else z0

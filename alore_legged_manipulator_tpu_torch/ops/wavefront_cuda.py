@@ -1,11 +1,11 @@
 """Wrappers of the hand-written Hopper wavefront kernels.
 
 `csrc/wavefront.cu` holds both kernels (K1 packed field + policy, K2
-field only) behind a plain C interface.  It is compiled with nvcc for
-sm_90a into a shared library at first use, under `build/` at the root
-of the checkout, keyed by a hash of the source and the flags, and
-loaded with ctypes.  Importing this module needs neither nvcc nor a
-card.
+field only) behind a plain C interface.  `ops/cuda_build.py` compiles it
+with nvcc for sm_90a into a shared library at first use, under `build/`
+at the root of the checkout, keyed by a hash of the source and the
+flags; it is loaded with ctypes.  Importing this module needs neither
+nvcc nor a card.
 
 Each wrapper allocates its outputs, launches on PyTorch's current
 stream, raises if the launch is refused, and adds one to its count in
@@ -19,20 +19,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "wavefront.cu"
-_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from . import cuda_build
+
+_SRC = cuda_build.CSRC / "wavefront.cu"
+NVCC_FLAGS = cuda_build.NVCC_FLAGS
 # most dynamic shared memory one block may use on Hopper
 MAX_SMEM_BYTES = 232_448
 MAX_THREADS = 1024
@@ -52,23 +48,8 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError("nvcc not found: the wavefront kernels are built "
-                       "from csrc/wavefront.cu on a machine with the CUDA "
-                       "toolkit")
-
-
 def library_path(extra_flags: tuple = ()) -> Path:
-    flags = NVCC_FLAGS + tuple(extra_flags)
-    h = hashlib.sha256(_SRC.read_bytes() + " ".join(flags).encode())
-    return _BUILD_ROOT / f"wavefront-{h.hexdigest()[:16]}" / "libwavefront.so"
+    return cuda_build.library_path(_SRC, extra_flags)
 
 
 def build(extra_flags: tuple = ()) -> tuple[Path, str]:
@@ -76,20 +57,7 @@ def build(extra_flags: tuple = ()) -> tuple[Path, str]:
     (library path, compiler log); the log holds ptxas' register and
     shared-memory report of a fresh build.  `extra_flags` go to nvcc
     after NVCC_FLAGS (-DWAVEFRONT_PROFILE makes the counting build)."""
-    so = library_path(extra_flags)
-    log_path = so.with_suffix(".log")
-    if so.exists():
-        return so, log_path.read_text() if log_path.exists() else ""
-    so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f".tmp-{os.getpid()}-{so.name}")
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    log_path.write_text(log)
-    os.replace(tmp, so)
-    return so, log
+    return cuda_build.build(_SRC, extra_flags)
 
 
 def bind(so: Path):

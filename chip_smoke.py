@@ -6,8 +6,9 @@ Phases, each printing lines of its own under a header with the seconds
 since the script started:
 
 1. Card and build: the card's name and power limit, the precision
-   policy, and the build of the wavefront kernels from
-   alore_legged_manipulator_tpu_torch/csrc/ with nvcc (sm_90a).
+   policy, and the build of the wavefront kernels and the NMPC feedback
+   kernel from alore_legged_manipulator_tpu_torch/csrc/ with nvcc
+   (sm_90a).
 2. Kernels against their plain PyTorch versions on the card: K1
    (`wavefront_packed_cuda`) and K2 (`octile_distance_field_cuda`) on
    random-obstacle 80x80 grids at the mission's launch shape (B=64) and
@@ -18,7 +19,15 @@ since the script started:
    relaxation `n_iters` cuts short, goals outside the grid and on blocked
    cells, and a 150x150 grid; a 162x162 grid, the first square one that
    fits no block, must be refused with ValueError.  The runtime's
-   occupancy report is printed for each instantiation used.
+   occupancy report is printed for each instantiation used.  Then K3,
+   the NMPC feedback kernel (`nmpc_feedback_cuda`), through `feedback`
+   against the plain `_feedback_matfree` at N=50 and B=1 and B=16384
+   (float32 within 2e-4), each timed with CUDA events after a warm-up
+   beside the plain version and the bound (`feedback_work`), with its
+   registers and blocks per SM; `nmpc_feedback_probe()` runs this
+   alone.  From here on every path's launch counts (`reset_launches`,
+   `kernel_launches`) hold K3 to one launch for each matrix-free NMPC
+   feedback call on the card.
 3. The production mission on the card at full width: B=64 three-object
    missions on the 80x80 map (wavefront front end, MINCO back end with
    the compact solver direction, NMPC + ICR-EKF closed-loop push) through
@@ -27,9 +36,10 @@ since the script started:
    first-leg field once more through the public `octile_distance_field`
    (K2).  The kernels' launch counts are set to 0 just before and read
    just after: K1 must have run once per leg and once per correction
-   round, K2 once.  Lanes delivered before the rounds must come out of
-   them bit for bit.  The run prints bench.py's mission line (its
-   `bench_mission` is this fleet: no warm-up, one timed iteration).
+   round, K2 once, K3 in the pushes.  Lanes delivered before the
+   rounds must come out of them bit for bit.  The run prints bench.py's
+   mission line (its `bench_mission` is this fleet: no warm-up, one
+   timed iteration).
 4. The ring-direction fleet of the first slice, cut in depth to K=1,
    approach_ticks=300, push_ticks=100 (B=64, no corrections), with its
    own launch counts: its plans must reach their goals, its pushes follow
@@ -110,7 +120,8 @@ since the script started:
    process of its own beside it, at that test's tolerances, and
    `train(mesh=...)` for 2 iterations against the training phase's
    first two (test_train_sharded.py's f32 tolerances); one tick traced
-   by `device_trace` (kernels, device-busy share).  Then the last
+   by `device_trace` (kernels, device-busy share); K3 once in each of
+   the phase's four tracking ticks.  Then the last
    modules: the septic MINCO card vs CPU at f64 and against the
    oracle's goldens, `max_rates` of the mapped arrangement's push plan
    card vs CPU, `make_scene("dense")` at 500x500 (card ESDF equal to the CPU's,
@@ -133,7 +144,8 @@ since the script started:
 12. The port's entry points (`alore_legged_manipulator_tpu_torch/entry.py`
    and the example twins under `.../examples/`): `entry()`'s B=64, N=50
    RTI tick on the card against the CPU (f32, 1e-4) and its median wall
-   over 20 repeats; `mission_validation` at its defaults, orders and
+   over 20 repeats (K3 once in each of its 24 ticks on the card);
+   `mission_validation` at its defaults, orders and
    costs equal to the JAX example's; then the three child processes
    started right after phase 1 are joined (EXAMPLE_CHILDREN, each its
    own timeout, any failure fails the script): `arrangement_mission
@@ -161,14 +173,18 @@ since the script started:
    plain versions (CUDA-event times, bounds; K1 also over the whole
    16384 lanes).  The non-timing fields are held: finite, the back
    end's plans on goal (1.5x the ALM tolerance) and collision-free, the
-   mission fleet's `delivered_frac` >= 0.85, and K1 / K2 launched on the
-   lines whose path holds them.  `bench_probe()` runs it alone.
-14. The `kernels` JSON line (with K1 and K2's launches on each path, 0
-   on the planner simulation, the mapped mission, the served policy,
-   training, the camera mission and the entry points, whose paths hold no
-   wavefront; K1 once on the mesh mission; the bench lines' launches and
-   the bench shapes' comparisons), the script's wall time, and as the
-   last line {"ok": true, "device": {...}}.
+   mission fleet's `delivered_frac` >= 0.85, K1 / K2 launched on the
+   lines whose path holds them, K3 on the closed loop, the legs and the
+   mission fleet, and once an RTI tick on the two NMPC lines.
+   `bench_probe()` runs it alone.
+14. The `kernels` JSON line: K1, K2 and K3 with their launches on each
+   path (K1 and K2 0 on the planner simulation, the mapped mission, the
+   served policy, training, the camera mission and the entry points,
+   whose paths hold no wavefront; K1 once on the mesh mission; K3 on
+   every path that ticks the NMPC on the card), the bench lines'
+   launches, the bench shapes' comparisons and K3's times at B=1 and
+   B=16384, the script's wall time, and as the last line {"ok": true,
+   "device": {...}}.
 
 Fails (non-zero exit, no result line) without a CUDA card or without the
 package beside it.  Imports nothing of JAX.
@@ -220,6 +236,53 @@ EDGE_PIXELS_F32 = 4
 
 def _phase(name):
     print(f"== {name} (at {time.perf_counter() - T_START:.1f} s)", flush=True)
+
+
+# matrix-free NMPC feedback calls on a CUDA carry since `reset_launches`:
+# the calls K3 serves, one launch each
+FEEDBACK_CALLS = {"card": 0}
+
+
+def _count_feedback_calls():
+    """Wrap control/nmpc.py's `feedback` (every RTI and cold-start tick
+    calls it through the module's globals) to count in FEEDBACK_CALLS the
+    calls that K3 serves.  Idempotent."""
+    from alore_legged_manipulator_tpu_torch.control import nmpc
+    fb = nmpc.feedback
+    if getattr(fb, "counted", False):
+        return
+
+    def counted(carry, prep, x_est, ref_x, ref_u, icr, cfg):
+        if (carry.x_traj.is_cuda and cfg.qp_mode == "matfree"
+                and cfg.condense_mode == "triangular"):
+            FEEDBACK_CALLS["card"] += 1
+        return fb(carry, prep, x_est, ref_x, ref_u, icr, cfg)
+    counted.counted = True
+    nmpc.feedback = counted
+
+
+def reset_launches():
+    """Set to 0 the launch counts of the hand-written kernels (K1 and K2
+    in ops/wavefront_cuda.py, K3 in ops/nmpc_feedback_cuda.py) and the
+    count of the feedback calls K3 serves."""
+    from alore_legged_manipulator_tpu_torch.ops import nmpc_feedback_cuda
+    from alore_legged_manipulator_tpu_torch.ops import wavefront_cuda
+    _count_feedback_calls()
+    wavefront_cuda.reset_launches()
+    nmpc_feedback_cuda.reset_launches()
+    FEEDBACK_CALLS["card"] = 0
+
+
+def kernel_launches():
+    """{kernel: launches since `reset_launches`}; fails unless K3 ran
+    exactly once for each matrix-free NMPC feedback call on the card."""
+    from alore_legged_manipulator_tpu_torch.ops import nmpc_feedback_cuda
+    from alore_legged_manipulator_tpu_torch.ops import wavefront_cuda
+    out = {**wavefront_cuda.LAUNCHES, **nmpc_feedback_cuda.LAUNCHES}
+    calls = FEEDBACK_CALLS["card"]
+    assert out["nmpc_feedback"] == calls, \
+        f"K3 ran {out['nmpc_feedback']} times for {calls} feedback calls"
+    return out
 
 
 def check_identical(wf, wfc, label, occ, goals, n_iters=None):
@@ -292,6 +355,112 @@ def check_kernels(wf, wfc, label, occ, goals, starts, path_len, iters):
     print(f"{label} wavefront_path: cells and valid identical "
           f"(mean valid cells {mean_turn_cells:.1f})", flush=True)
     return out
+
+
+def feedback_work(B, n, qp_iters=4, cg_iters=15, itemsize=4):
+    """(operations, bytes) of B lanes of the NMPC feedback at horizon n.
+    Operations: 52 a stage for one Hessian application (C p: 13 to form
+    the five columns, 5 to sum them, 6 to unpack; Q: 3; C'y: 2 + 5 + 6 +
+    10; R p: 4), applied 1 + cg_iters + 4 times an outer iteration, and
+    per variable 15 a CG trip (the mask and reg term 2, two dot products
+    4, three updates 6, preconditioner 1, direction 2), 7 a line-search
+    candidate, 6 for the gradient and step; 60 a stage of set-up.
+    Bytes: every input read once and every output written once (x_traj,
+    ref_x, the state outputs: 3 (n+1) values each, ref_u 2 (n+1), u_traj
+    2n, x_int 3n, a02 and a12 n each, B0-B2 6n, x_est 3; u_new 2n)."""
+    hess = 52 * n
+    per_var = 15 * cg_iters + 7 * 4 + 6
+    ops = qp_iters * ((1 + cg_iters + 4) * hess + per_var * 2 * n) + 60 * n
+    values = 8 * (n + 1) + 13 * n + 3 + 3 * (n + 1) + 2 * n
+    return B * ops, B * values * itemsize
+
+
+def _feedback_inputs(B, n, dtype, seed=0):
+    """`feedback`'s arguments (carry, prep, x_est, ref_x, ref_u, icr, cfg)
+    for a lane batch whose references ask for 1-6 m/s and wheels of
+    +-4 m/s, so that the QP's box is active."""
+    from alore_legged_manipulator_tpu_torch.control import nmpc
+    from alore_legged_manipulator_tpu_torch.core.dynamics import ICRParams
+    rng = np.random.default_rng(seed)
+    ts = 0.01 * np.arange(1, n + 2)
+    speed = rng.uniform(1.0, 6.0, (B, 1))
+    arrays = (rng.standard_normal((B, n + 1, 3)) * 0.1,
+              rng.standard_normal((B, n, 2)) * 0.5,
+              rng.standard_normal((B, 3)) * 0.1,
+              np.stack([speed * ts, 0 * speed + 0.2 * np.sin(3 * ts),
+                        0 * speed + 0.5 * ts], axis=1),
+              np.stack([np.full((B, n + 1), 4.0),
+                        np.full((B, n + 1), -4.0)], axis=1)
+              * np.sign(rng.standard_normal((B, 1, 1))))
+    t = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in arrays]
+    carry = nmpc.NmpcCarry(t[0], t[1])
+    cfg, icr = nmpc.NmpcConfig(horizon=n), ICRParams(-0.3, 0.3, 0.2)
+    prep = nmpc.prepare_tri(carry, icr, cfg)
+    return carry, prep, t[2], t[3], t[4], icr, cfg
+
+
+def nmpc_feedback_on_card(log=""):
+    """K3, the NMPC feedback kernel, through `feedback` on a CUDA carry
+    against the plain `_feedback_matfree` at N=50, B=1 and B=16384
+    (float32): max gaps (within 2e-4), kernel ms (CUDA events over
+    back-to-back calls after a warm-up; device ms from a graph's
+    replays), plain ms, the bound (operations at 67 TFLOP/s f32 or bytes
+    at 3.35 TB/s, the larger), registers and blocks per SM, and K3's
+    launches (one a call).  Returns {B: measurements}."""
+    from alore_legged_manipulator_tpu_torch.control import nmpc
+    from alore_legged_manipulator_tpu_torch.ops import (
+        nmpc_feedback_cuda as nfc)
+    from alore_legged_manipulator_tpu_torch.ops.wavefront_bench import (
+        graph_ms, time_ms)
+    for line in log.splitlines():
+        if "entry function" in line or "registers" in line:
+            print("  ptxas (K3):", line.strip(), flush=True)
+    out = {}
+    for B in (1, 16384):
+        args = _feedback_inputs(B, 50, torch.float32, seed=B)
+        carry, prep, x_est, ref_x, ref_u, _, cfg = args
+        reset_launches()
+        _, x_k, u_k = nmpc.feedback(*args)
+        assert kernel_launches()["nmpc_feedback"] == 1
+        _, x_p, u_p = nmpc._feedback_matfree(carry, prep, x_est, ref_x,
+                                             ref_u, cfg)
+        gaps = (float((x_k - x_p).abs().max()),
+                float((u_k - u_p).abs().max()))
+        assert max(gaps) < 2e-4, f"K3 B={B}: kernel vs plain {gaps}"
+        ops, nbytes = feedback_work(B, 50, cfg.qp_iters, cfg.cg_iters)
+        by_ops, by_bytes = ops / 67e12 * 1e3, nbytes / 3.35e12 * 1e3
+        ms = time_ms(lambda: nmpc.feedback(*args), 200 if B == 1 else 50,
+                     warmup=3)
+        out[B] = dict(
+            shape=f"B={B} N=50 f32", max_gap_x=gaps[0], max_gap_u=gaps[1],
+            ms=ms, device_ms=graph_ms(lambda: nmpc.feedback(*args)),
+            plain_ms=time_ms(lambda: nmpc._feedback_matfree(
+                carry, prep, x_est, ref_x, ref_u, cfg), 2, warmup=1),
+            bound_ms=max(by_ops, by_bytes),
+            bound_by="operations" if by_ops >= by_bytes else "bytes",
+            ops=ops, bytes=nbytes,
+            launches=kernel_launches()["nmpc_feedback"],
+            **nfc.occupancy(50))
+        print(f"K3 nmpc_feedback {out[B]['shape']}: " + json.dumps(out[B]),
+              flush=True)
+    return out
+
+
+def nmpc_feedback_probe():
+    """Build K3 and run `nmpc_feedback_on_card` alone (about a minute)."""
+    from alore_legged_manipulator_tpu_torch.ops import (
+        nmpc_feedback_cuda as nfc)
+    from alore_legged_manipulator_tpu_torch.utils.precision import (
+        set_precision_policy)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+    set_precision_policy()
+    t0 = time.perf_counter()
+    so, log = nfc.build()
+    print(f"built {so.name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    nmpc_feedback_on_card(log)
 
 
 def dispatched_ops(fn, grad=False) -> int:
@@ -442,7 +611,7 @@ def advance(traj):
     return torch.linalg.vector_norm(traj[:, -1, :2] - traj[:, 0, :2], dim=-1)
 
 
-def ring_fleet(mf, wf, wfc, items32, targets32, robot0, esdf, icr, field_m,
+def ring_fleet(mf, wf, items32, targets32, robot0, esdf, icr, field_m,
                prod):
     """The first slice's ring-direction fleet, cut in depth to K=1, 300
     approach and RING_PUSH_TICKS push ticks, with its own launch counts; `prod` is the production
@@ -452,7 +621,7 @@ def ring_fleet(mf, wf, wfc, items32, targets32, robot0, esdf, icr, field_m,
     cfg_ring = mf.MissionFleetConfig(approach_ticks=300,
                                      push_ticks=RING_PUSH_TICKS)
     assert cfg_ring.backend.solver_direction == "ring"
-    wfc.reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res_ring = mf.run_mission(items32[:, :1], targets32[:, :1], robot0, esdf,
@@ -460,7 +629,7 @@ def ring_fleet(mf, wf, wfc, items32, targets32, robot0, esdf, icr, field_m,
     torch.cuda.synchronize()
     wall_ring = time.perf_counter() - t0
     field_r, _, _ = mission_field_through_k2(wf, esdf, targets32, cfg_ring, B)
-    launches_ring = dict(wfc.LAUNCHES)
+    launches_ring = kernel_launches()
     print("launches during the ring fleet:", json.dumps(launches_ring),
           flush=True)
     assert launches_ring["wavefront_packed"] == 1
@@ -556,7 +725,7 @@ def small_fleet_card_vs_cpu(items32, targets32, robot0, occ, cfg, icr):
     assert 0.8 <= ratio <= 1.25, f"card advance ratio {ratio}"
 
 
-def physics_fleet(mf, wfc, esdf, icr, backend_cfg):
+def physics_fleet(mf, esdf, icr, backend_cfg):
     """The contact-plant fleet at full width: B=64, K=1, plant="physics",
     the production profile otherwise, then correct_until_delivered with
     300-tick legs.  Returns (K1 launches, summary)."""
@@ -576,7 +745,7 @@ def physics_fleet(mf, wfc, esdf, icr, backend_cfg):
         return out
     mf.simulate_tracking_physics = recording
     try:
-        wfc.reset_launches()
+        reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         base = mf.run_mission(items, targets, robot0, esdf, icr, cfg)
@@ -587,7 +756,7 @@ def physics_fleet(mf, wfc, esdf, icr, backend_cfg):
                                                       icr, cfg, corr_ticks)
         torch.cuda.synchronize()
         wall_rounds = time.perf_counter() - t0
-        launches = dict(wfc.LAUNCHES)
+        launches = kernel_launches()
     finally:
         mf.simulate_tracking_physics = sim
     rounds = len(miss_counts)
@@ -708,7 +877,7 @@ class PhaseClock:
         return {**self.phases, "other_host": wall - sum(self.phases.values())}
 
 
-def arrangement_on_card(wfc, push_s=MAPPED_PUSH_S):
+def arrangement_on_card(push_s=MAPPED_PUSH_S):
     """The arrangement mission of tests/test_arrangement.py's scene on
     the contact plant, on the card, cut to its first object and the first
     `push_s` simulated seconds of that object's push: item (2.5, 2.5) to
@@ -745,7 +914,7 @@ def arrangement_on_card(wfc, push_s=MAPPED_PUSH_S):
     clock.wrap(pm, "build_tracked_traj", "tracked_traj")
     clock.wrap(arr, "simulate_tracking_physics", "tracking")
     clock.wrap(pm.MappedPlanManager, "sense", "sensing")
-    wfc.reset_launches()
+    reset_launches()
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -755,7 +924,7 @@ def arrangement_on_card(wfc, push_s=MAPPED_PUSH_S):
     finally:
         clock.restore()
         arr.simulate_tracking_physics = full_push
-    launches = dict(wfc.LAUNCHES)
+    launches = kernel_launches()
     (track,) = rep.object_tracks
     summary = {"mapped": True, "order": rep.order,
                "simulated_push_s": push_s,
@@ -791,7 +960,7 @@ def _matched_ticks(golden_t, ticks, atol=1e-9):
                if any(abs(t - g) <= atol for t in ticks))
 
 
-def planner_sim_on_card(wfc, golden_name, sim_T, tracker, pose_band):
+def planner_sim_on_card(golden_name, sim_T, tracker, pose_band):
     """run_planner_sim on the card at the goldens' full width (140x60
     corridor, 360 beams to 5 m, LTV horizon 30 with 3 x 150 ADMM passes
     or NMPC N=50, float32), cut to `sim_T`, with the configuration
@@ -836,7 +1005,7 @@ def planner_sim_on_card(wfc, golden_name, sim_T, tracker, pose_band):
             (ps, "occupancy_update_perspective", "fusion"),
             (ps, "ekf_predict", "ekf"), (ps, "ekf_update", "ekf")):
         clock.wrap(owner, name, bucket)
-    wfc.reset_launches()
+    reset_launches()
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -846,7 +1015,7 @@ def planner_sim_on_card(wfc, golden_name, sim_T, tracker, pose_band):
         wall = time.perf_counter() - t0
     finally:
         clock.restore()
-    launches = dict(wfc.LAUNCHES)
+    launches = kernel_launches()
 
     g_t = [p["t"] for p in golden["plans"] if p["t"] <= sim_T]
     t_t = [p["t"] for p in trace.plans]
@@ -899,7 +1068,6 @@ def planner_probe():
     """One B=1 plan or two and a few ticks of each tracker on the card:
     the corridor under the LTV-MPC and the raycast corridor under the
     NMPC, each cut to 0.1 s (two plans, nine tracker ticks)."""
-    from alore_legged_manipulator_tpu_torch.ops import wavefront_cuda as wfc
     from alore_legged_manipulator_tpu_torch.utils.precision import (
         set_precision_policy)
     print(subprocess.run(
@@ -907,8 +1075,8 @@ def planner_probe():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
     set_precision_policy()
-    planner_sim_on_card(wfc, "corridor", 0.1, "ltv", (0.15, 0.45))
-    planner_sim_on_card(wfc, "nmpc_corridor_raycast", 0.1, "nmpc",
+    planner_sim_on_card("corridor", 0.1, "ltv", (0.15, 0.45))
+    planner_sim_on_card("nmpc_corridor_raycast", 0.1, "nmpc",
                         (0.2, 1.0))
 
 
@@ -916,7 +1084,6 @@ def served_probe():
     """The served policy's phases alone (the policy card vs CPU, the
     eval, the bus mission, the low-level WBC), about two minutes of
     command time."""
-    from alore_legged_manipulator_tpu_torch.ops import wavefront_cuda as wfc
     from alore_legged_manipulator_tpu_torch.utils.precision import (
         set_precision_policy)
     print(subprocess.run(
@@ -926,7 +1093,7 @@ def served_probe():
     set_precision_policy()
     for name, fn in (("policy", policy_card_vs_cpu),
                      ("eval", tracking_eval_on_card),
-                     ("bus mission", lambda: bus_mission_on_card(wfc)),
+                     ("bus mission", bus_mission_on_card),
                      ("low level", low_level_card_vs_cpu)):
         _phase(name)
         fn()
@@ -1169,7 +1336,7 @@ def tracking_eval_on_card():
     return summary
 
 
-def bus_mission_on_card(wfc):
+def bus_mission_on_card():
     """The perception -> FSM -> trained-policy mission of
     examples/train_and_deploy_highlevel.py over one MessageBus, the
     contact-plant env on the card: item (2, 0.5), target (4, 2), dt 0.02,
@@ -1199,7 +1366,7 @@ def bus_mission_on_card(wfc):
     clock.wrap(fsm_node, "tick", "fsm")
     clock.wrap(ctrl, "policy_fn", "policy")
     clock.wrap(ctrl, "_step", "env_step")
-    wfc.reset_launches()
+    reset_launches()
     ticks = 0
     try:
         torch.cuda.synchronize()
@@ -1213,7 +1380,7 @@ def bus_mission_on_card(wfc):
         wall = time.perf_counter() - t0
     finally:
         clock.restore()
-    launches = dict(wfc.LAUNCHES)
+    launches = kernel_launches()
     err = float(np.linalg.norm(world.objects[0][:2]
                                - np.asarray(targets[0])[:2]))
     summary = {"state": fsm_node.fsm.state.name, "ticks": ticks,
@@ -1461,7 +1628,6 @@ def train_camera_probe():
     checkpoint round trip, the f64 update card vs CPU, the dispatch
     counts, the camera checks and the camera bus mission (about 5 min):
     `python3 -c "import chip_smoke; chip_smoke.train_camera_probe()"`."""
-    from alore_legged_manipulator_tpu_torch.ops import wavefront_cuda as wfc
     bands = training_bands()
     REWARD_BANDS.update({it: tuple(b["band"]) for it, b in bands.items()})
     state, _, _, _ = training_on_card()
@@ -1470,7 +1636,7 @@ def train_camera_probe():
     checkpoint_round_trip_on_card(state)
     ppo_update_card_vs_cpu()
     camera_card_vs_cpu()
-    camera_bus_mission_on_card(wfc)
+    camera_bus_mission_on_card()
     print(f"probe wall time: {time.perf_counter() - T_START:.1f} s",
           flush=True)
 
@@ -1658,7 +1824,7 @@ def camera_card_vs_cpu():
     return out, card_map
 
 
-def camera_bus_mission_on_card(wfc):
+def camera_bus_mission_on_card():
     """tests/test_camera_perception.py::test_bus_mission_on_vision_perception
     on the card: `run_bus_mission(perception="camera")`, items (3, 0.5),
     (3, -1) to targets (6, 1.5), (6, -1.5), the camera frames rendered on
@@ -1676,7 +1842,7 @@ def camera_bus_mission_on_card(wfc):
             (bm.MissionFsmNode, "tick", "fsm"),
             (bm.ControllerNode, "tick", "controller")):
         clock.wrap(owner, name, bucket)
-    wfc.reset_launches()
+    reset_launches()
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1688,7 +1854,7 @@ def camera_bus_mission_on_card(wfc):
         wall = time.perf_counter() - t0
     finally:
         clock.restore()
-    launches = dict(wfc.LAUNCHES)
+    launches = kernel_launches()
     summary = {"delivered": rep.delivered, "ticks": rep.ticks,
                "final_err_m": rep.final_err, "wall_s": wall,
                "renders": clock.calls.get("render", 0) // 3,
@@ -1748,7 +1914,9 @@ def mesh_tick_and_env(mesh):
     same tick unsharded with the same injected plant noise (both
     gathered), counting its collectives (none allowed); the contact env
     step at B=64 on the mesh; then one device_trace around one tick: its
-    kernel count and the device-busy share of the traced window."""
+    kernel count and the device-busy share of the traced window.  The
+    kernels' launches are counted over the phase: K3 once a tick (four
+    ticks).  Returns the summary."""
     from alore_legged_manipulator_tpu_torch.control.nmpc import NmpcConfig
     from alore_legged_manipulator_tpu_torch.parallel import dryrun
     from alore_legged_manipulator_tpu_torch.parallel import mesh as pm
@@ -1759,6 +1927,7 @@ def mesh_tick_and_env(mesh):
     B = 256
     noise = torch.as_tensor(np.random.default_rng(0).standard_normal(
         (B, 5, 2)), dtype=torch.float32)
+    reset_launches()
     (out_sh, mean_cmd), counts = _count_collectives(
         lambda: dryrun.tick_program(mesh, B, noise=noise))
     cfg = NmpcConfig()
@@ -1782,7 +1951,9 @@ def mesh_tick_and_env(mesh):
         torch.cuda.synchronize()
     traced_s = time.perf_counter() - t0
     tr = trace_summary(os.path.join(log_dir, "trace.json"))
+    launches = kernel_launches()
     summary = {"tick_batch": B, "horizon": cfg.horizon,
+               "kernel_launches": launches,
                "tick_sharded_vs_unsharded_max_abs_err": gap,
                "tick_collectives_sharded": counts, "mean_abs_cmd": mean_cmd,
                "tick_collectives_unsharded": tick_coll,
@@ -1798,6 +1969,7 @@ def mesh_tick_and_env(mesh):
     assert gap <= 1e-6, summary
     assert np.isfinite(mean_r) and r.shape == (64,), summary
     assert 0.0 <= tr["busy_share"] <= 1.0, tr
+    assert launches["nmpc_feedback"] == 4, launches
     return summary
 
 
@@ -1863,7 +2035,7 @@ def start_unsharded_mission():
     return proc, out, log
 
 
-def mesh_mission(mesh, wfc, child):
+def mesh_mission(mesh, child):
     """The mesh mission's fleet (`_mesh_mission_fleet`) on the mesh, its
     K1 launches counted, against the same fleet unsharded on the card in
     the process `child` (`start_unsharded_mission`, started at the
@@ -1873,7 +2045,7 @@ def mesh_mission(mesh, wfc, child):
     from alore_legged_manipulator_tpu_torch.parallel import mesh as pm
     from alore_legged_manipulator_tpu_torch.runtime import mission_fleet as mf
     items, targets, robots, esdf, icr, cfg = _mesh_mission_fleet()
-    wfc.reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sh = mf.run_mission(*pm.shard_scenarios(mesh, (items, targets, robots)),
@@ -1881,7 +2053,7 @@ def mesh_mission(mesh, wfc, child):
     sh = pm.gather_scenarios(mesh, sh)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(wfc.LAUNCHES)
+    launches = kernel_launches()
     proc, out, log = child
     try:
         proc.wait(timeout=600)
@@ -2117,12 +2289,13 @@ def last_modules_on_card(push_plan, card_map):
     return out
 
 
-def mesh_and_last_modules(wfc, hist_ref, params_ref, push_plan, card_map):
+def mesh_and_last_modules(hist_ref, params_ref, push_plan, card_map):
     """Phase 10: a one-rank NCCL mesh on the card (`make_mesh(1)`) under
     the tracking tick, the env step, the mission fleet and training, then
     the last modules.  The profiler's kernel count and busy share are
     printed, not held (a trace that sees no kernel is a finding about
-    the profiler here).  Returns the mesh mission's K1/K2 launches."""
+    the profiler here).  Returns the kernels' launches in the mesh
+    mission and in the phase's tracking ticks."""
     import torch.distributed as dist
     from alore_legged_manipulator_tpu_torch.parallel.mesh import make_mesh
     child = start_unsharded_mission()
@@ -2133,8 +2306,8 @@ def mesh_and_last_modules(wfc, hist_ref, params_ref, push_plan, card_map):
           f"opened in {time.perf_counter() - t0:.2f} s", flush=True)
     assert backend == "nccl", backend
     try:
-        mesh_tick_and_env(mesh)
-        _, launches = mesh_mission(mesh, wfc, child)
+        tick = mesh_tick_and_env(mesh)
+        _, launches = mesh_mission(mesh, child)
         mesh_training(mesh, hist_ref, params_ref)
     finally:
         dist.destroy_process_group()
@@ -2142,7 +2315,7 @@ def mesh_and_last_modules(wfc, hist_ref, params_ref, push_plan, card_map):
             child[0].kill()
             child[0].wait()
     last_modules_on_card(push_plan, card_map)
-    return launches
+    return launches, tick["kernel_launches"]
 
 
 def mesh_probe():
@@ -2164,11 +2337,11 @@ def mesh_probe():
     _, hist = train(_train_cfg(iterations=2), models=models)
     params = {k: {n: v.clone() for n, v in m.state_dict().items()}
               for k, m in zip(("actor", "critic"), models)}
-    _, _, plan = arrangement_on_card(wfc)
+    _, _, plan = arrangement_on_card()
     _, card_map = camera_card_vs_cpu()
     _phase("mesh and the last modules")
     t0 = time.perf_counter()
-    mesh_and_last_modules(wfc, hist, params, plan, card_map)
+    mesh_and_last_modules(hist, params, plan, card_map)
     print(f"phase 10 wall time: {time.perf_counter() - t0:.1f} s; probe "
           f"wall time: {time.perf_counter() - T_START:.1f} s", flush=True)
 
@@ -2598,7 +2771,6 @@ def _example_run(module, flags):
 
     from alore_legged_manipulator_tpu_torch.core.dynamics import ICRParams
     from alore_legged_manipulator_tpu_torch.mission import plan_manager as pm
-    from alore_legged_manipulator_tpu_torch.ops import wavefront_cuda as wfc
     from alore_legged_manipulator_tpu_torch.runtime import arrangement as arr
     from alore_legged_manipulator_tpu_torch.runtime.closed_loop import (
         LoopConfig)
@@ -2629,7 +2801,7 @@ def _example_run(module, flags):
         clock.wrap(ex, "restore", "restore")
         clock.wrap(ex, "tracking_eval", "tracking_eval")
         clock.wrap(ex, "bus_mission", "bus_mission")
-    wfc.reset_launches()
+    reset_launches()
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2640,7 +2812,7 @@ def _example_run(module, flags):
         clock.restore()
     run = {"example": module, "flags": flags, "result": _jsonable(result),
            "wall_s": wall, "wall_by_phase_s": clock.report(wall),
-           "kernel_launches": dict(wfc.LAUNCHES)}
+           "kernel_launches": kernel_launches()}
     if tracked:
         run["plans"] = clock.calls.get("back_end", 0)
         run["ticks"] = int(sum(t for _, t in tracked))
@@ -2780,17 +2952,19 @@ def mission_validation_on_card():
           "to the JAX example's", flush=True)
 
 
-def entry_points_on_card(wfc, smi, children):
+def entry_points_on_card(smi, children):
     """Phase 12: `entry()` and `mission_validation` in this process, each
     with its kernel launches counted from 0, then the example children
     (`start_example_children`) joined and held.  Returns (launches of
     entry, launches of mission_validation, the children's runs)."""
-    wfc.reset_launches()
+    reset_launches()
     entry_on_card(smi)
-    launches_entry = dict(wfc.LAUNCHES)
-    wfc.reset_launches()
+    launches_entry = kernel_launches()
+    # one K3 launch for each of entry_on_card's 24 RTI ticks on the card
+    assert launches_entry["nmpc_feedback"] == 24, launches_entry
+    reset_launches()
     mission_validation_on_card()
-    launches_validation = dict(wfc.LAUNCHES)
+    launches_validation = kernel_launches()
     runs = join_example_children(children)
     check_example_runs(runs)
     return launches_entry, launches_validation, runs
@@ -2807,13 +2981,12 @@ def entry_points_probe():
         check=True).stdout.strip()
     print(smi, flush=True)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from alore_legged_manipulator_tpu_torch.ops import wavefront_cuda as wfc
     set_precision_policy()
     children = start_example_children()
     atexit.register(_kill_children, children)
     _phase("the port's entry points")
     t0 = time.perf_counter()
-    entry_points_on_card(wfc, smi, children)
+    entry_points_on_card(smi, children)
     print(f"phase 12 wall time: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -2847,14 +3020,14 @@ BENCH_CUTS = {
 BENCH_CHILD_TIMEOUT_S = 600
 
 
-def _bench_run(name, fn, wfc):
+def _bench_run(name, fn):
     """One line at its cut size with the wavefront kernels' launches
     counted from 0: (line, out, launches)."""
-    wfc.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     line, out = fn(**BENCH_CUTS[name], device="cuda")
     torch.cuda.synchronize()
-    return line, out, dict(wfc.LAUNCHES), time.perf_counter() - t0
+    return line, out, kernel_launches(), time.perf_counter() - t0
 
 
 def bench_child(out_path):
@@ -2866,14 +3039,13 @@ def bench_child(out_path):
     from alore_legged_manipulator_tpu_torch import bench as tb
     from alore_legged_manipulator_tpu_torch.examples import (
         bench_backend, bench_mission_fleet, bench_mission_legs)
-    from alore_legged_manipulator_tpu_torch.ops import wavefront_cuda as wfc
     runs = {}
     for name, fn in (("backend", tb.backend_line),
                      ("backend_fleet", bench_backend.backend_fleet_line),
                      ("mission_legs", bench_mission_legs.legs_line),
                      ("mission_fleet",
                       bench_mission_fleet.mission_fleet_line)):
-        line, out, launches, wall = _bench_run(name, fn, wfc)
+        line, out, launches, wall = _bench_run(name, fn)
         runs[name] = {"cut": BENCH_CUTS[name], "line": line,
                       "out": _jsonable(
                           {k: (v.tolist() if isinstance(v, np.ndarray)
@@ -3003,9 +3175,18 @@ def check_bench_lines(runs):
     assert all(r["n_ok"] == r["B"] for r in runs["frontend"]["rows"])
     for name, kernel in (("wavefront", "wavefront_packed"),
                          ("mission_fleet", "wavefront_packed"),
-                         ("frontend", "octile_distance_field")):
+                         ("frontend", "octile_distance_field"),
+                         ("closed_loop", "nmpc_feedback"),
+                         ("mission_legs", "nmpc_feedback"),
+                         ("mission_fleet", "nmpc_feedback")):
         assert runs[name]["launches"][kernel] >= 1, \
             f"{name}: {kernel} was not launched"
+    # the NMPC lines: a warm chain, then one chain a timed repeat, one K3
+    # launch an RTI tick
+    for name, reps in (("nmpc_rti", "iters"), ("nmpc_latency", "calls")):
+        cut = BENCH_CUTS[name]
+        assert runs[name]["launches"]["nmpc_feedback"] == \
+            cut["chain"] * (1 + cut[reps]), (name, runs[name]["launches"])
 
 
 def bench_lines_on_card(wf, wfc, child):
@@ -3023,7 +3204,7 @@ def bench_lines_on_card(wf, wfc, child):
                      ("closed_loop", bench_closed_loop.closed_loop_line),
                      ("physics_env", bench_physics_env.physics_env_line),
                      ("mapping", bench_mapping.mapping_line)):
-        line, out, launches, wall = _bench_run(name, fn, wfc)
+        line, out, launches, wall = _bench_run(name, fn)
         if name == "physics_env":       # its line is the JAX bench's text
             line, out = {"text": line, **{k: v for k, v in out.items()
                                           if k != "state"}}, {}
@@ -3036,7 +3217,7 @@ def bench_lines_on_card(wf, wfc, child):
     print(f"nmpc_rti at B=16384: peak memory "
           f"{runs['nmpc_rti']['out']['peak_mem_bytes'] / 2**30:.2f} GiB",
           flush=True)
-    wfc.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     rows = bench_frontend.frontend_rows(**BENCH_CUTS["frontend"],
                                         device="cuda")
@@ -3044,7 +3225,7 @@ def bench_lines_on_card(wf, wfc, child):
     runs["frontend"] = {
         "cut": BENCH_CUTS["frontend"], "line": {"rows": [{k: v for k, v in r.items() if k not in (
             "host_flats", "starts", "goals")} for r in rows]},
-        "launches": dict(wfc.LAUNCHES), "wall_s": time.perf_counter() - t0}
+        "launches": kernel_launches(), "wall_s": time.perf_counter() - t0}
     print("bench: " + json.dumps({"name": "frontend", **runs["frontend"]}),
           flush=True)
     kernels = bench_kernel_checks(wf, wfc, tb, rows[-1])
@@ -3115,6 +3296,11 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "smem" in line or "spill" in line:
             print("  ptxas:", line.strip(), flush=True)
+    from alore_legged_manipulator_tpu_torch.ops import (
+        nmpc_feedback_cuda as nfc)
+    t0 = time.perf_counter()
+    so, feedback_log = nfc.build()
+    print(f"built {so.name} in {time.perf_counter() - t0:.1f} s", flush=True)
     # the example twins of phase 12 run in child processes beside the
     # phases below; any still running when the script ends is killed
     children = start_example_children()
@@ -3167,6 +3353,7 @@ def main() -> int:
         print(f"162x162 refused as expected: {e}", flush=True)
     else:
         raise AssertionError("a 162x162 grid was not refused")
+    k3 = nmpc_feedback_on_card(feedback_log)
 
     # ---- 3. the production mission on the card ----
     _phase("production mission B=64 K=3 on the card (compact, corrections)")
@@ -3185,7 +3372,7 @@ def main() -> int:
     esdf = esdf_from_occupancy(torch.as_tensor(occ, device="cuda"),
                                torch.zeros(2), 0.1)
     items32, targets32 = items.astype(np.float32), targets.astype(np.float32)
-    wfc.reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     base = mf.run_mission(items32, targets32, robot0, esdf, icr, cfg)
@@ -3200,7 +3387,7 @@ def main() -> int:
                                      miss_counts=miss_counts) / B
     field_m, blk_m, goal_m = mission_field_through_k2(wf, esdf, targets32,
                                                       cfg, B)
-    launches = dict(wfc.LAUNCHES)
+    launches = kernel_launches()
     rounds = len(miss_counts)
     print("launches during the production mission:", json.dumps(launches),
           flush=True)
@@ -3208,6 +3395,7 @@ def main() -> int:
         f"K1 ran {launches['wavefront_packed']} times, not {K} + {rounds}"
     assert launches["octile_distance_field"] == 1, \
         "K2 did not run once through octile_distance_field"
+    assert launches["nmpc_feedback"] > 0, "K3 did not run in the pushes"
     assert torch.equal(field_m, wf.octile_distance_field_torch(blk_m, goal_m)), \
         "the mission map's field differs from plain"
     assert bool((field_m < 1e9).any())
@@ -3248,7 +3436,7 @@ def main() -> int:
 
     # ---- 4. the first slice's ring fleet (depth cut to K=1), leg phases,
     #      a small fleet card vs CPU ----
-    launches_ring = ring_fleet(mf, wf, wfc, items32, targets32, robot0, esdf,
+    launches_ring = ring_fleet(mf, wf, items32, targets32, robot0, esdf,
                                icr, field_m, base)
     leg_phases(mf, items32, targets32, robot0, esdf, icr, cfg,
                push_ticks=LEG_PUSH_TICKS)
@@ -3257,20 +3445,20 @@ def main() -> int:
 
     # ---- 5. the contact plant ----
     _phase("contact-plant fleet B=64 K=1 on the card (compact, corrections)")
-    launches_phys, _ = physics_fleet(mf, wfc, esdf, icr, cfg.backend)
+    launches_phys, _ = physics_fleet(mf, esdf, icr, cfg.backend)
     _phase("contact plant: card vs CPU")
     physics_card_vs_cpu()
     _phase("lidar-mapped arrangement mission on the card, contact plant "
            f"(first object, plan and first {MAPPED_PUSH_S} s of its push)")
-    _, launches_mapped, push_plan = arrangement_on_card(wfc)
+    _, launches_mapped, push_plan = arrangement_on_card()
 
     # ---- 6. the planner simulation ----
     _phase("planner simulation, LTV-MPC, corridor (perspective)")
-    _, launches_ps_ltv = planner_sim_on_card(wfc, "corridor", PS_LTV_T, "ltv",
+    _, launches_ps_ltv = planner_sim_on_card("corridor", PS_LTV_T, "ltv",
                                              (0.15, 0.45))
     _phase("planner simulation, NMPC, corridor (raycast)")
     _, launches_ps_nmpc = planner_sim_on_card(
-        wfc, "nmpc_corridor_raycast", PS_NMPC_T, "nmpc", (0.2, 1.0))
+        "nmpc_corridor_raycast", PS_NMPC_T, "nmpc", (0.2, 1.0))
 
     # ---- 7. variants on the card ----
     _phase("variants on the card")
@@ -3280,20 +3468,20 @@ def main() -> int:
     _phase("trained policy: card vs CPU, B=1 latency")
     policy_card_vs_cpu()
     _phase("tracking eval on the contact plant, 256 lanes x 100 steps")
-    wfc.reset_launches()
+    reset_launches()
     tracking_eval_on_card()
-    launches_eval = dict(wfc.LAUNCHES)
+    launches_eval = kernel_launches()
     _phase("bus mission with the trained policy in the loop")
-    _, launches_bus = bus_mission_on_card(wfc)
+    _, launches_bus = bus_mission_on_card()
     _phase("low-level WBC: card vs CPU")
     low_level_card_vs_cpu()
 
     # ---- 9. training and camera perception ----
     _phase(f"training: PPO on the contact plant, B=1536 x 24 steps, "
            f"{TRAIN_ITERS} iterations from the CSV's start")
-    wfc.reset_launches()
+    reset_launches()
     state, hist_train, _, params_two = training_on_card()
-    launches_train = dict(wfc.LAUNCHES)
+    launches_train = kernel_launches()
     print("training, dispatched operations: "
           + json.dumps(train_dispatches(_train_cfg())), flush=True)
     _phase("training: checkpoint round trip, one f64 update card vs CPU")
@@ -3301,13 +3489,13 @@ def main() -> int:
     ppo_update_card_vs_cpu()
     _phase("camera: card vs CPU, bus mission on camera perception")
     _, card_map = camera_card_vs_cpu()
-    _, launches_cam = camera_bus_mission_on_card(wfc)
+    _, launches_cam = camera_bus_mission_on_card()
 
     # ---- 10. the data-parallel layer and the last modules ----
     _phase("mesh and the last modules")
     t_mesh = time.perf_counter()
-    launches_mesh = mesh_and_last_modules(wfc, hist_train, params_two,
-                                          push_plan, card_map)
+    launches_mesh, launches_mesh_tick = mesh_and_last_modules(
+        hist_train, params_two, push_plan, card_map)
     print(f"phase 10 wall time: {time.perf_counter() - t_mesh:.1f} s",
           flush=True)
 
@@ -3323,7 +3511,7 @@ def main() -> int:
            "children")
     t_entry = time.perf_counter()
     launches_entry, launches_validation, example_runs = entry_points_on_card(
-        wfc, smi, children)
+        smi, children)
     print(f"phase 12 wall time (the children's joins included): "
           f"{time.perf_counter() - t_entry:.1f} s", flush=True)
 
@@ -3337,6 +3525,22 @@ def main() -> int:
           f"{time.perf_counter() - t_bench:.1f} s", flush=True)
 
     # ---- 14. result lines ----
+    # each kernel's launches on each path
+    paths = dict(
+        launches=launches, launches_ring_fleet=launches_ring,
+        launches_physics_fleet=launches_phys,
+        launches_mapped_arrangement=launches_mapped,
+        launches_planner_sim_ltv=launches_ps_ltv,
+        launches_planner_sim_nmpc=launches_ps_nmpc,
+        launches_policy_eval=launches_eval, launches_bus_mission=launches_bus,
+        launches_training=launches_train, launches_camera_mission=launches_cam,
+        launches_mesh_tick=launches_mesh_tick,
+        launches_mesh_mission=launches_mesh, launches_entry=launches_entry,
+        launches_mission_validation=launches_validation,
+        **{f"launches_{child}_{r['example']}": r["kernel_launches"]
+           for child, rs in example_runs.items() for r in rs},
+        launches_bench_mission=launches,
+        **{f"launches_bench_{line}": n for line, n in launches_bench.items()})
     kern = []
     for name, replaces in (
             ("wavefront_packed",
@@ -3347,24 +3551,8 @@ def main() -> int:
         kern.append(dict(
             name=name, route="cuda",
             source="alore_legged_manipulator_tpu_torch/csrc/wavefront.cu",
-            replaces=replaces, launches=launches[name],
-            launches_ring_fleet=launches_ring[name],
-            launches_physics_fleet=launches_phys[name],
-            launches_mapped_arrangement=launches_mapped[name],
-            launches_planner_sim_ltv=launches_ps_ltv[name],
-            launches_planner_sim_nmpc=launches_ps_nmpc[name],
-            launches_policy_eval=launches_eval[name],
-            launches_bus_mission=launches_bus[name],
-            launches_training=launches_train[name],
-            launches_camera_mission=launches_cam[name],
-            launches_mesh_mission=launches_mesh[name],
-            launches_entry=launches_entry[name],
-            launches_mission_validation=launches_validation[name],
-            **{f"launches_{child}_{r['example']}": r["kernel_launches"][name]
-               for child, rs in example_runs.items() for r in rs},
-            launches_bench_mission=launches[name],
-            **{f"launches_bench_{line}": n[name]
-               for line, n in launches_bench.items()},
+            replaces=replaces,
+            **{path: n[name] for path, n in paths.items()},
             max_abs_err=max([m["max_abs_err"], m100[name]["max_abs_err"],
                              m64[name]["max_abs_err"]]
                             + [b["max_abs_err"]
@@ -3379,6 +3567,20 @@ def main() -> int:
                 "shape", "ms", "plain_ms", "max_abs_err", "bound_ms",
                 "bound_by")}
                 for label, b in bench_kernels[name].items()}))
+    m1, m16k = k3[1], k3[16384]
+    kern.append(dict(
+        name="nmpc_feedback", route="cuda",
+        source="alore_legged_manipulator_tpu_torch/csrc/nmpc_feedback.cu",
+        replaces=None,
+        **{path: n["nmpc_feedback"] for path, n in paths.items()},
+        max_abs_err=max(max(m["max_gap_x"], m["max_gap_u"])
+                        for m in k3.values()),
+        ms=m16k["ms"], plain_ms=m16k["plain_ms"], bound_ms=m16k["bound_ms"],
+        bound_by=m16k["bound_by"], library_ms=None, shape=m16k["shape"],
+        device_ms=m16k["device_ms"], ms_b1=m1["ms"],
+        plain_ms_b1=m1["plain_ms"], bound_ms_b1=m1["bound_ms"],
+        device_ms_b1=m1["device_ms"], registers=m16k["registers"],
+        blocks_per_sm=m16k["blocks_per_sm"]))
     print(json.dumps({"kernels": kern}), flush=True)
     print(f"script wall time: {time.perf_counter() - T_START:.1f} s",
           flush=True)

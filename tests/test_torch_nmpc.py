@@ -153,6 +153,29 @@ def test_rti_step_rejects_other_modes():
             side.nmpc_rti_step(carry, *args, icr, cfg)
 
 
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_cpu_feedback_is_the_plain_path_bit_for_bit(dtype, monkeypatch):
+    """On CPU tensors `feedback` never loads the card's kernel and returns
+    `_feedback_matfree`'s tensors bit for bit (the matrix-free path the
+    CPU ran before the kernel existed)."""
+    from alore_legged_manipulator_tpu_torch.ops import (
+        nmpc_feedback_cuda as nfc)
+
+    def forbidden(*a, **k):
+        raise AssertionError("the feedback kernel was reached on the CPU")
+
+    monkeypatch.setattr(nfc, "_load", forbidden)
+    monkeypatch.setattr(tn, "nmpc_feedback_cuda", forbidden)
+    t = [torch.as_tensor(a.astype(dtype)) for a in _entry_inputs()]
+    cfg, icr = tn.NmpcConfig(), TICR(-0.3, 0.3, 0.2)
+    carry = tn.NmpcCarry(t[0], t[1])
+    prep = tn._linearize(carry, icr, cfg)
+    got = tn.feedback(carry, prep, t[2], t[3], t[4], icr, cfg)
+    want = tn._feedback_matfree(carry, prep, t[2], t[3], t[4], cfg)
+    for a, b in zip((*got[0], *got[1:]), (*want[0], *want[1:])):
+        assert torch.equal(a, b)
+
+
 MODES = [dict(qp_mode="dense", condense_mode="triangular"),
          dict(qp_mode="dense", condense_mode="assoc"),
          dict(qp_mode="dense", condense_mode="seq"),

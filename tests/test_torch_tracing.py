@@ -31,10 +31,10 @@ P = torch.profiler
 LAYERS = ("ref", "nmpc.linearize", "nmpc.feedback", "ekf.predict", "plant",
           "ekf.update")
 # synchronising CUDA calls in one B=1 tick by span, as PERF.md records
-# them: stage_weights' q and r, ref_points' t_now, ekf_predict's Q and
-# ekf_update's R, each a blocking copy from a Python value
-HOST_SYNCS = {"nmpc.feedback": 2, "ref": 1, "ekf.predict": 1,
-              "ekf.update": 1}
+# them: ref_points' t_now, ekf_predict's Q and ekf_update's R, each a
+# blocking copy from a Python value (the feedback kernel takes its
+# weights as launch arguments and makes none)
+HOST_SYNCS = {"ref": 1, "ekf.predict": 1, "ekf.update": 1}
 
 
 def _fake_clock(times_ms):
