@@ -4,13 +4,18 @@ ESDF is built in set-up, one call after another.
 Every goal is drawn from the run's seed.  The goal box is cut into a
 grid of strata; each pass over the grid visits every stratum once, in
 an order drawn from the seed, with a goal uniform inside it, so that
-every seed asks for different goals spread alike over the box.  `pool`
-goals are drawn in set-up, more than a window can plan; the window
-plans them in turn until `seconds` have passed.  Each call ends when its
-result is on the host, as the plan manager hands it on.  After the
-window every plan is judged (`reference/plan.py`), and a sample of them,
-drawn from the seed, is solved again by the plain solver
-(`reference/solve.py`) and compared by its objective.
+every seed asks for different goals spread alike over the box.  A call
+plans `lanes` goals; `pool` calls, a whole number of passes, are drawn
+in set-up, more than a window can plan; the window plans them in turn
+until `seconds` have passed.  Each call ends when its result is on the
+host, as the plan manager hands it on.  The window's rate counts the
+plans of the whole passes it finished, over the time to the end of the
+last of them, so that every seed's rate is over goals spread alike; a
+window that finishes no whole pass is an error.  After the window every
+plan is judged (`reference/plan.py`), those of an unfinished pass too,
+and a sample of them, drawn from the seed across every call, is solved
+again by the plain solver (`reference/solve.py`) and compared by its
+objective.
 """
 from __future__ import annotations
 
@@ -67,13 +72,26 @@ def backend_config(cfg):
         shot_path_horizon=cfg["short_path"]["horizon"])
 
 
+def calls_per_pass(strata, lanes):
+    """Calls that make up a whole number of passes over the grid, the
+    fewest: a call of 512 lanes holds 32 passes of a 4 x 4 grid, a pass
+    of a 2 x 4 grid is 8 calls of one lane."""
+    cells = strata[0] * strata[1]
+    return math.lcm(cells, lanes) // lanes
+
+
 class Cell:
     def __init__(self, config, traffic, seed, device):
         self.cfg, self.traffic, self.seed = config, traffic, int(seed)
         self.dev = torch.device(device)
         self.lanes = int(traffic["lanes"])
+        self.per_pass = calls_per_pass(traffic["strata"], self.lanes)
+        if traffic["pool"] % self.per_pass:
+            raise ValueError(f"pool {traffic['pool']} is no whole number of "
+                             f"passes of {self.per_pass} calls")
         self.done = []          # (request fields, result fields), host
-        self._solved = {}       # sample index -> the f64 reference's plan
+        self.counted = 0        # calls of the window's whole passes
+        self._solved = {}       # (call, lane) -> the f64 reference's plan
 
     def setup(self):
         from alore_legged_manipulator_tpu_torch.ops.esdf import (
@@ -99,10 +117,11 @@ class Cell:
         goals = stratified_goals(tr["pool"] * self.lanes + self.lanes,
                                  self.seed, box, tr["strata"])
         # the requests as the host hands them over: float32 front-end
-        # guesses, made once on the host; the first call warms up
+        # guesses, made once on the host; the pool's calls begin at a
+        # pass's first goal, and the call drawn after them warms up
         calls = [self._request(g) for g in goals.reshape(-1, self.lanes, 2)]
-        self.calls = calls[1:]
-        self._call(calls[0], keep=False)
+        self.calls = calls[:-1]
+        self._call(calls[-1], keep=False)
 
     def _request(self, goals):
         return frozen.straight_flats(
@@ -118,24 +137,31 @@ class Cell:
         return host
 
     def window(self, seconds):
-        """The pool's calls in turn until `seconds` have passed."""
-        lat = []
+        """The pool's calls in turn until `seconds` have passed; the rate's
+        requests, time and failures are those of the whole passes."""
+        lat, ends = [], []
         t0 = time.perf_counter()
         for i in range(10 ** 9):
             ts = time.perf_counter()
             self._call(self.calls[i % len(self.calls)], keep=True)
-            lat.append(time.perf_counter() - ts)
-            if time.perf_counter() - t0 >= seconds:
+            ends.append(time.perf_counter())
+            lat.append(ends[-1] - ts)
+            if ends[-1] - t0 >= seconds:
                 break
-        elapsed = time.perf_counter() - t0
+        n = len(lat) // self.per_pass * self.per_pass
+        if n == 0:
+            raise RuntimeError(
+                f"the window of {seconds} s planned {len(lat)} calls and "
+                f"finished no whole pass of {self.per_pass}: no rate")
+        self.counted = n
         # a plan that states no finite answer, or states that it could
         # not clear the map, has failed
         failed = sum(int((~torch.isfinite(h["coeffs"]).flatten(1).all(1)
                           | ~torch.isfinite(h["final_xy_err"]).all(1)
                           | h["collision"].bool()).sum())
-                     for _, h in self.done)
-        return {"latencies_s": lat, "elapsed_s": elapsed,
-                "requests": len(lat), "lanes": self.lanes, "failed": failed}
+                     for _, h in self.done[:n])
+        return {"latencies_s": lat[:n], "elapsed_s": ends[n - 1] - t0,
+                "requests": n, "lanes": self.lanes, "failed": failed}
 
     def stretch(self, brief=False):
         """The traced stretch: the pool's first `trace_calls` calls (a
@@ -147,11 +173,17 @@ class Cell:
         return n
 
     def counters(self):
-        """Means over every plan of the window: stage-2 iterations and
-        attempts of the collision loop."""
-        it = torch.cat([h["stage2_iters"] for _, h in self.done]).double()
-        rp = torch.cat([h["replans"] for _, h in self.done]).double()
-        return {"stage2_iters": float(it.mean()), "replans": float(rp.mean())}
+        """Over the plans that the rate counts: the means of the stage-2
+        iterations and of the attempts of the collision loop, and the
+        lanes' imbalance, each call's most stage-2 iterations over its
+        mean, averaged over the calls."""
+        done = self.done[:self.counted]
+        its = [h["stage2_iters"].double() for _, h in done]
+        rp = torch.cat([h["replans"] for _, h in done]).double()
+        return {"stage2_iters": float(torch.cat(its).mean()),
+                "replans": float(rp.mean()),
+                "lane_imbalance": sum(float(i.max() / i.mean())
+                                      for i in its) / len(its)}
 
     def release(self):
         self.esdf = self.plan = None
@@ -167,18 +199,22 @@ class Cell:
                 "goal_xy": req["final_xytheta"][:, :2].to(dtype)}
 
     def _sample(self):
-        """Indices of the plans (lane 0 of each call) that the plain
-        solver solves again, drawn from the seed."""
-        n = min(self.traffic["solve_sample"], len(self.done))
+        """(call, lane) of the plans that the plain solver solves again,
+        drawn from the seed among every plan of the window."""
+        total = len(self.done) * self.lanes
+        n = min(self.traffic["solve_sample"], total)
         rng = np.random.default_rng([self.seed, 13])
-        return sorted(rng.choice(len(self.done), n, replace=False).tolist())
+        return [divmod(k, self.lanes) for k in
+                sorted(rng.choice(total, n, replace=False).tolist())]
 
-    def _one_lane(self, req, lane):
-        return {k: v[lane:lane + 1] for k, v in req.items()}
+    @staticmethod
+    def _one_lane(fields, lane):
+        return {k: v[lane:lane + 1] for k, v in fields.items()}
 
-    def _reference_plan(self, i, dist, dtype):
-        """The plain solver's plan for the sampled call i, lane 0."""
-        req = self._one_lane(self.done[i][0], 0)
+    def _reference_plan(self, key, dist, dtype):
+        """The plain solver's plan for the sampled (call, lane)."""
+        i, lane = key
+        req = self._one_lane(self.done[i][0], lane)
         prob = ref_solve.Problem(req, dist, self.cfg, dtype)
         return prob, ref_solve.solve(prob)
 
@@ -190,9 +226,9 @@ class Cell:
         dist = ref_spline.esdf(self.occ, rcfg["map_res"], low)
         lim = self.cfg["backend"]["final_min_safe_dis"]
         plans = []
-        for i in sample:
-            req = self._one_lane(self.done[i][0], 0)
-            _, sol = self._reference_plan(i, dist, low)
+        for key in sample:
+            req = self._one_lane(self.done[key[0]][0], key[1])
+            _, sol = self._reference_plan(key, dist, low)
             dec = {"inner": sol["inner"], "times": sol["times"],
                    "tail_s": sol["tail_s"]}
             got = ref_plan.derive(self._ref_request(req, low), dec, dist,
@@ -226,10 +262,11 @@ class Cell:
         sample = self._sample()
         if control:
             plans = self._control_plans(sample, rcfg)
-            judged = list(zip(sample, plans))
+            judged = [(key, h) for key, (_, h) in zip(sample, plans)]
         else:
             plans = self.done
-            judged = [(i, self.done[i]) for i in sample]
+            judged = [(key, self._one_lane(self.done[key[0]][1], key[1]))
+                      for key in sample]
         lim = b["final_min_safe_dis"]
         band = self.traffic["clearance_band_m"]
         gap = {"spline_gap": 0.0, "final_xy_gap": 0.0,
@@ -270,10 +307,10 @@ class Cell:
             gap["unmoved_plans"] += int((moved.amax(1) < 1e-5).sum())
             n_plans += h["times"].shape[0]
 
-        for i, (_, h) in judged:
-            if i not in self._solved:
-                self._solved[i] = self._reference_plan(i, dist, f64)
-            prob, sol = self._solved[i]
+        for key, h in judged:
+            if key not in self._solved:
+                self._solved[key] = self._reference_plan(key, dist, f64)
+            prob, sol = self._solved[key]
             best = prob.objective(sol["inner"], sol["tail_s"], sol["times"])
             got = prob.objective(h["inner"][:1].to(f64),
                                  h["tail_state"][:1, 1, 0].to(f64),

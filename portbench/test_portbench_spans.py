@@ -125,3 +125,42 @@ def test_a_traced_tick_of_the_port_feeds_the_host_readers():
         assert parts < read("tick_host_ms.fleet")
     finally:
         profiling.reset()
+
+
+# every number of the tracking cells on one fixed record, as their
+# readers give it: a change to what a tracking cell reads shows here
+FIXED = {"lanes": 16, "requests": 300, "elapsed_s": 51.25, "setup_s": 9.5,
+         "latencies_s": [0.02 + 1e-4 * (i % 37) for i in range(300)],
+         "trace": TraceSummary(window_s=2.0, busy_s=0.5, device_ops=26000,
+                               device_top=[], idle_gaps=[]),
+         "traced_requests": 20}
+FIXED_VALUES = {
+    "tick_p95_ms": 23.5, "setup_s": 9.5, "device_idle_pct.tick": 75.0,
+    "launches_per_tick.b1": 1300.0, "ref_host_ms.b1": 10.0,
+    "linearize_host_ms.b1": 8.0, "feedback_host_ms.b1": 120.0,
+    "ekf_host_ms.b1": 12.0, "plant_host_ms.b1": 30.0,
+    "host_syncs_per_tick.b1": 5.0,
+    "host_us_per_launch.b1": 153.84615384615384,
+    "scenario_ticks_per_s": 93.65853658536585,
+    "device_idle_pct.fleet": 75.0, "launches_per_tick.fleet": 1300.0,
+    "device_ms_per_tick.fleet": 25.0, "ref_stream_ms.fleet": 2.0,
+    "linearize_stream_ms.fleet": 4.0, "feedback_stream_ms.fleet": 140.0,
+    "ekf_stream_ms.fleet": 18.0, "plant_stream_ms.fleet": 16.0,
+    "host_syncs_per_tick.fleet": 5.0, "tick_host_ms.fleet": 200.0}
+
+
+def _tracking_metrics():
+    """Every metric that a tracking cell reports, each once."""
+    out = []
+    for w in ("track-b1", "track-fleet16k"):
+        _, _, _, e2e, layer = run.cell_spec(BENCH, w)
+        out += [m["name"] for m in e2e + layer if m["name"] not in out]
+    return out
+
+
+@pytest.mark.parametrize("name", _tracking_metrics())
+def test_tracking_readers_read_a_fixed_record_as_before(name, monkeypatch):
+    monkeypatch.setattr(spans, "snapshot",
+                        lambda: {"records": [], "requests": _ticks(),
+                                 "dropped": 0})
+    assert read(name, FIXED) == pytest.approx(FIXED_VALUES[name], rel=1e-12)
