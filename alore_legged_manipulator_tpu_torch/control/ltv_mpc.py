@@ -33,6 +33,7 @@ import torch
 
 from ..ops.qp import qp_admm_general
 from ..utils.precision import resolve_device
+from ..utils.profiling import span
 
 NX = 3  # x, y, theta
 NU = 2  # v, omega
@@ -94,6 +95,7 @@ def _rollout(x0, output, cfg: LtvMpcConfig):
 
 
 class _Layout(NamedTuple):
+    Q: torch.Tensor          # (4,) cfg.q_diag
     H: torch.Tensor          # (nx, nx)
     A: torch.Tensor          # (m, nx) with the linearization entries 0
     lb: torch.Tensor         # (m,) box and rate rows; 0 on equality rows
@@ -171,7 +173,7 @@ def _qp_layout(cfg: LtvMpcConfig, dtype, device) -> _Layout:
     # -B (x, y rows on v), then -A's theta columns for stages k >= 1
     rows = torch.cat([r, r + 1, rk, rk + 1])
     cols = torch.cat([iu, iu, c - 1, c - 1])
-    return _Layout(H, A, lb, ub, rows, cols)
+    return _Layout(Q, H, A, lb, ub, rows, cols)
 
 
 def _build_qp(xbar, xref, dref, carry: LtvMpcCarry, cfg: LtvMpcConfig):
@@ -183,7 +185,7 @@ def _build_qp(xbar, xref, dref, carry: LtvMpcCarry, cfg: LtvMpcConfig):
     n_st = T - d
     dtype = xbar.dtype
     lay = _qp_layout(cfg, dtype, xbar.device)
-    Q = torch.tensor(cfg.q_diag, dtype=dtype, device=xbar.device)
+    Q = lay.Q
 
     # ---- gradient ----
     zero = torch.zeros_like(dref[:, 0, d:])
@@ -227,6 +229,7 @@ def ltv_mpc_tick(carry: LtvMpcCarry, x_est, xref, dref, cfg: LtvMpcConfig):
 
     x_est (B, 3); xref (B, 4, T) reference (x, y, v_unused, yaw); dref
     (B, 2, T) reference (v, omega).  Returns (new_carry, cmd (B, 2)).
+    Each pass's rollout and assembly run in span `ltv.linearize`.
     """
     B = x_est.shape[0]
     d = cfg.delay_num
@@ -234,8 +237,9 @@ def ltv_mpc_tick(carry: LtvMpcCarry, x_est, xref, dref, cfg: LtvMpcConfig):
     dimx = NX * n_st
     output = carry.output
     for _ in range(cfg.sqp_iters):
-        xbar = _rollout(x_est, output, cfg)
-        H, g, A, lb, ub = _build_qp(xbar, xref, dref, carry, cfg)
+        with span("ltv.linearize"):
+            xbar = _rollout(x_est, output, cfg)
+            H, g, A, lb, ub = _build_qp(xbar, xref, dref, carry, cfg)
         sol, _ = qp_admm_general(H, g, A, lb, ub, iters=cfg.admm_iters,
                                  rho=cfg.admm_rho)
         u = sol[:, dimx:].reshape(B, n_st, NU).transpose(1, 2)

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.precision import hdot
+from ..utils.profiling import count, span
 
 # the Tikhonov term of the PNCG solves (box_qp_pncg, box_qp_pncg_op)
 PNCG_REG = 1e-7
@@ -165,6 +166,17 @@ def qp_admm_general(H, g, A, lb, ub, z0=None, rho: float = 0.4,
     steps of two triangular solves each.  Equality rows (lb == ub) get
     rho * 1e3, as OSQP scales them.  H (B, n, n), g (B, n), A (B, m, n),
     lb/ub (B, m).  Returns (x, y): primal solution and constraint dual.
+
+    Spans `admm.factor` (the KKT product and the Cholesky) and
+    `admm.iterate` (the steps), and the counter `admm.iters` (+1 a step
+    run).  Nothing is read back to the host: K is positive definite by
+    construction (sigma > 0), so the factorisation's error check is left
+    out on purpose (`cholesky_ex`, its `info` not read).  A K that is not
+    positive definite, from a non-finite or diverged input, gives NaN in
+    the result rather than an error.  Each step solves with the two
+    triangular factors, the LAPACK calls of `cholesky_solve` on the CPU
+    (the same bits), where on a card a batched `cholesky_solve`
+    allocates, frees and synchronises on every call.
     """
     n = g.shape[-1]
     x = torch.zeros_like(g) if z0 is None else z0
@@ -174,16 +186,22 @@ def qp_admm_general(H, g, A, lb, ub, z0=None, rho: float = 0.4,
                           torch.full_like(lb, rho * 1e3),
                           torch.full_like(lb, rho))
     At = A.transpose(1, 2)
-    K = (H + sigma * torch.eye(n, dtype=g.dtype, device=g.device)
-         + torch.matmul(At * rho_vec[:, None, :], A))
-    L = torch.linalg.cholesky(K)
-    for _ in range(iters):
-        rhs = sigma * x - g + _hmv(At, rho_vec * z - y)
-        xt = torch.cholesky_solve(rhs[..., None], L)[..., 0]
-        zt = _hmv(A, xt)
-        x = alpha * xt + (1.0 - alpha) * x
-        z_relaxed = alpha * zt + (1.0 - alpha) * z
-        z_new = torch.minimum(torch.maximum(z_relaxed + y / rho_vec, lb), ub)
-        y = y + rho_vec * (z_relaxed - z_new)
-        z = z_new
+    with span("admm.factor"):
+        K = (H + sigma * torch.eye(n, dtype=g.dtype, device=g.device)
+             + torch.matmul(At * rho_vec[:, None, :], A))
+        L = torch.linalg.cholesky_ex(K).L
+    Lt = L.transpose(1, 2)
+    with span("admm.iterate"):
+        for _ in range(iters):
+            rhs = sigma * x - g + _hmv(At, rho_vec * z - y)
+            w = torch.linalg.solve_triangular(L, rhs[..., None], upper=False)
+            xt = torch.linalg.solve_triangular(Lt, w, upper=True)[..., 0]
+            zt = _hmv(A, xt)
+            x = alpha * xt + (1.0 - alpha) * x
+            z_relaxed = alpha * zt + (1.0 - alpha) * z
+            z_new = torch.minimum(torch.maximum(z_relaxed + y / rho_vec, lb),
+                                  ub)
+            y = y + rho_vec * (z_relaxed - z_new)
+            z = z_new
+            count("admm.iters")
     return x, y

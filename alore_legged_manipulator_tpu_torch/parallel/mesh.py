@@ -31,13 +31,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..control.ltv_mpc import LtvMpcConfig, ltv_mpc_tick
 from ..control.nmpc import NmpcConfig, nmpc_rti_step
-from ..control.tracked_traj import TrackedTraj, ref_points
+from ..control.tracked_traj import TrackedTraj, ltv_ref_points, ref_points
 from ..core.dynamics import ICRParams
 from ..estimator.icr_ekf import EkfConfig, ekf_predict, ekf_update
 from ..utils.precision import resolve_device
 from ..utils.profiling import span
-from ..world.plant import PlantConfig, plant_step
+from ..world.plant import (PlantConfig, plant_step, plant_step_mpc_tick,
+                           plant_wheel_feedback)
 
 
 class Mesh(NamedTuple):
@@ -226,6 +228,59 @@ def batched_tracking_step(tt: TrackedTraj, true_icr: ICRParams,
                                         generator=gen, noise=draw)
             with span("ekf.update"):
                 ekfs = ekf_update(ekfs, plants.xytheta, ekf_cfg)
+        return plants, ekfs, carries, u_cmd, noise
+
+    return fn
+
+
+def batched_ltv_tracking_step(tt: TrackedTraj, true_icr: ICRParams,
+                              ltv_cfg: LtvMpcConfig = LtvMpcConfig(),
+                              ekf_cfg: EkfConfig = EkfConfig(),
+                              plant_cfg: PlantConfig = PlantConfig(),
+                              substeps: int = 5):
+    """One closed-loop tick of the LTV-MPC stack for a scenario batch:
+    the mpc_controller node on the ICR-EKF estimate, the simulator's
+    (v, omega) CarState path (planner_sim.launch, simulator.h:203-262).
+
+    tt: one tracked trajectory (lane axis 1), shared by every scenario.
+    Returns fn(plants, ekfs, carries, u_prevs, noise, t) -> (plants,
+    ekfs, carries, u_cmds, noise), every state with a leading scenario
+    axis, as `batched_tracking_step` does.  In order: the references at
+    t on the estimate's yaw, `ltv_mpc_tick` on the estimated pose, the
+    EKF predict on the plant's wheel feedback through the true ICR (the
+    last tick's command, decayed), the plant adopting the new (v, omega)
+    command at once and decaying it over `substeps`, the EKF update on
+    the plant's pose plus `noise`, the (B, 3) pose measurement error
+    (None: exact).  `u_prevs`, last tick's command, is not read: the
+    carry's delay buffer holds it.  The tick reads nothing back to the
+    host and issues no collective.
+    """
+    dt = ltv_cfg.dt
+
+    def fn(plants, ekfs, carries, u_prevs, noise, t):
+        dtype, dev = plants.xytheta.dtype, plants.xytheta.device
+        B = plants.xytheta.shape[0]
+        with span("tick", lanes=B):
+            lanes = _lanes(tt, B, dev)
+            t = float(torch.as_tensor(t, dtype=dtype))
+            est_pose = ekfs.x[:, :3]
+            with span("ref"):
+                xref, dref = ltv_ref_points(lanes, t, ltv_cfg.horizon, dt,
+                                            est_pose[:, 2])
+            carries, u_cmd = ltv_mpc_tick(carries, est_pose, xref, dref,
+                                          ltv_cfg)
+            with span("ekf.predict"):
+                ekfs = ekf_predict(ekfs, plant_wheel_feedback(plants,
+                                                              true_icr),
+                                   dt, ekf_cfg)
+            with span("plant"):
+                plants = plant_step_mpc_tick(plants, u_cmd[:, 0],
+                                             u_cmd[:, 1], plant_cfg,
+                                             substeps, dt / substeps)
+            with span("ekf.update"):
+                obs = plants.xytheta if noise is None \
+                    else plants.xytheta + noise
+                ekfs = ekf_update(ekfs, obs, ekf_cfg)
         return plants, ekfs, carries, u_cmd, noise
 
     return fn
