@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.qp import qp_admm_general
+from ..ops.qp_admm_cuda import AdmmPattern, admm_pattern
 from ..utils.precision import resolve_device
 from ..utils.profiling import span
 
@@ -102,15 +103,19 @@ class _Layout(NamedTuple):
     ub: torch.Tensor
     rows: torch.Tensor       # (4 n_st - 2,) linearization entries
     cols: torch.Tensor
+    pattern: AdmmPattern     # where A and the KKT factor may be nonzero
 
 
 @functools.lru_cache(maxsize=16)
 def _qp_layout(cfg: LtvMpcConfig, dtype, device) -> _Layout:
     """What solveMPCV (:304-493) assembles from the config alone: the
     Hessian with its Rd rate cross terms, the box, rate and constant
-    dynamics entries of A, their bounds, and where the linearization's
-    entries go.  Every value is computed in `dtype`, in the JAX
-    package's order."""
+    dynamics entries of A, their bounds, where the linearization's
+    entries go, and the QP's pattern for the ADMM kernel (A's constant
+    nonzeros and the linearization's entries, the envelope of the KKT
+    matrix's factor from H's and A's), read once on the host here.
+    Every value is computed in `dtype`, in the JAX package's
+    order."""
     T, d = cfg.horizon, cfg.delay_num
     n_st = T - d
     dimx, dimu = NX * n_st, NU * n_st
@@ -173,7 +178,9 @@ def _qp_layout(cfg: LtvMpcConfig, dtype, device) -> _Layout:
     # -B (x, y rows on v), then -A's theta columns for stages k >= 1
     rows = torch.cat([r, r + 1, rk, rk + 1])
     cols = torch.cat([iu, iu, c - 1, c - 1])
-    return _Layout(Q, H, A, lb, ub, rows, cols)
+    mask = A != 0
+    mask[rows, cols] = True
+    return _Layout(Q, H, A, lb, ub, rows, cols, admm_pattern(mask, H != 0))
 
 
 def _build_qp(xbar, xref, dref, carry: LtvMpcCarry, cfg: LtvMpcConfig):
@@ -229,19 +236,21 @@ def ltv_mpc_tick(carry: LtvMpcCarry, x_est, xref, dref, cfg: LtvMpcConfig):
 
     x_est (B, 3); xref (B, 4, T) reference (x, y, v_unused, yaw); dref
     (B, 2, T) reference (v, omega).  Returns (new_carry, cmd (B, 2)).
-    Each pass's rollout and assembly run in span `ltv.linearize`.
+    Each pass's rollout and assembly run in span `ltv.linearize`; its QP
+    goes to `qp_admm_general` with the layout's pattern.
     """
     B = x_est.shape[0]
     d = cfg.delay_num
     n_st = cfg.horizon - d
     dimx = NX * n_st
     output = carry.output
+    pattern = _qp_layout(cfg, x_est.dtype, x_est.device).pattern
     for _ in range(cfg.sqp_iters):
         with span("ltv.linearize"):
             xbar = _rollout(x_est, output, cfg)
             H, g, A, lb, ub = _build_qp(xbar, xref, dref, carry, cfg)
         sol, _ = qp_admm_general(H, g, A, lb, ub, iters=cfg.admm_iters,
-                                 rho=cfg.admm_rho)
+                                 rho=cfg.admm_rho, pattern=pattern)
         u = sol[:, dimx:].reshape(B, n_st, NU).transpose(1, 2)
         output = torch.cat([carry.delay_buff[:, :d].transpose(1, 2), u],
                            dim=2) if d > 0 else u

@@ -11,7 +11,8 @@
 * box_qp_admm: OSQP-style splitting with one Cholesky factorization of
   H + rho*I.
 * qp_admm_general: OSQP-style dense ADMM for general constraints
-  lb <= A z <= ub (the LTV-MPC's solver).
+  lb <= A z <= ub (the LTV-MPC's solver); its steps are one hand-written
+  kernel launch on a card.
 
 All run a fixed number of iterations and can be warm started (z0).
 Every tensor has a leading lane axis: g, lb, ub, diag_h (B, n),
@@ -23,6 +24,7 @@ import torch
 
 from ..utils.precision import hdot
 from ..utils.profiling import count, span
+from .qp_admm_cuda import qp_admm_cuda
 
 # the Tikhonov term of the PNCG solves (box_qp_pncg, box_qp_pncg_op)
 PNCG_REG = 1e-7
@@ -157,7 +159,7 @@ def box_qp_pncg_op(matvec, diag_h, g, lb, ub, z0=None, iters: int = 6,
 
 def qp_admm_general(H, g, A, lb, ub, z0=None, rho: float = 0.4,
                     sigma: float = 1e-6, alpha: float = 1.6,
-                    iters: int = 200):
+                    iters: int = 200, pattern=None):
     """OSQP-style dense ADMM:  min 0.5 x'Hx + g'x  s.t. lb <= A x <= ub.
 
     The operator splitting of OSQP (the reference LTV-MPC's solver,
@@ -167,21 +169,24 @@ def qp_admm_general(H, g, A, lb, ub, z0=None, rho: float = 0.4,
     rho * 1e3, as OSQP scales them.  H (B, n, n), g (B, n), A (B, m, n),
     lb/ub (B, m).  Returns (x, y): primal solution and constraint dual.
 
+    On a card the steps run as one launch of the hand-written kernel
+    (`ops/qp_admm_cuda.py`, `csrc/qp_admm.cu`), which reads A and the
+    factor only at `pattern`'s entries (an `AdmmPattern`: where they may
+    be nonzero in every lane; every entry when None); a tensor it does
+    not take raises.  On the CPU they run as `admm_steps`, the plain version,
+    which ignores the pattern.
+
     Spans `admm.factor` (the KKT product and the Cholesky) and
     `admm.iterate` (the steps), and the counter `admm.iters` (+1 a step
     run).  Nothing is read back to the host: K is positive definite by
     construction (sigma > 0), so the factorisation's error check is left
     out on purpose (`cholesky_ex`, its `info` not read).  A K that is not
     positive definite, from a non-finite or diverged input, gives NaN in
-    the result rather than an error.  Each step solves with the two
-    triangular factors, the LAPACK calls of `cholesky_solve` on the CPU
-    (the same bits), where on a card a batched `cholesky_solve`
-    allocates, frees and synchronises on every call.
+    the result rather than an error.  Each eager step solves with the
+    two triangular factors, the LAPACK calls of `cholesky_solve` on the
+    CPU (the same bits).
     """
     n = g.shape[-1]
-    x = torch.zeros_like(g) if z0 is None else z0
-    z = torch.minimum(torch.maximum(_hmv(A, x), lb), ub)
-    y = torch.zeros_like(lb)
     rho_vec = torch.where(torch.abs(ub - lb) < 1e-12,
                           torch.full_like(lb, rho * 1e3),
                           torch.full_like(lb, rho))
@@ -190,18 +195,36 @@ def qp_admm_general(H, g, A, lb, ub, z0=None, rho: float = 0.4,
         K = (H + sigma * torch.eye(n, dtype=g.dtype, device=g.device)
              + torch.matmul(At * rho_vec[:, None, :], A))
         L = torch.linalg.cholesky_ex(K).L
-    Lt = L.transpose(1, 2)
     with span("admm.iterate"):
-        for _ in range(iters):
-            rhs = sigma * x - g + _hmv(At, rho_vec * z - y)
-            w = torch.linalg.solve_triangular(L, rhs[..., None], upper=False)
-            xt = torch.linalg.solve_triangular(Lt, w, upper=True)[..., 0]
-            zt = _hmv(A, xt)
-            x = alpha * xt + (1.0 - alpha) * x
-            z_relaxed = alpha * zt + (1.0 - alpha) * z
-            z_new = torch.minimum(torch.maximum(z_relaxed + y / rho_vec, lb),
-                                  ub)
-            y = y + rho_vec * (z_relaxed - z_new)
-            z = z_new
-            count("admm.iters")
+        if g.is_cuda:
+            x, y = qp_admm_cuda(L, A, g, lb, ub, z0, rho=rho, sigma=sigma,
+                                alpha=alpha, iters=iters, pattern=pattern)
+            count("admm.iters", iters)
+        else:
+            x, y = admm_steps(L, A, g, lb, ub, rho_vec, z0, sigma, alpha,
+                              iters)
+    return x, y
+
+
+def admm_steps(L, A, g, lb, ub, rho_vec, z0, sigma: float, alpha: float,
+               iters: int):
+    """The plain version of `qp_admm_general`'s steps, on any device: from
+    the lower factor L of its KKT matrix and the rows' rho_vec, `iters`
+    relaxed steps of eager operations, each adding one to the counter
+    `admm.iters`.  Returns (x, y)."""
+    x = torch.zeros_like(g) if z0 is None else z0
+    z = torch.minimum(torch.maximum(_hmv(A, x), lb), ub)
+    y = torch.zeros_like(lb)
+    At, Lt = A.transpose(1, 2), L.transpose(1, 2)
+    for _ in range(iters):
+        rhs = sigma * x - g + _hmv(At, rho_vec * z - y)
+        w = torch.linalg.solve_triangular(L, rhs[..., None], upper=False)
+        xt = torch.linalg.solve_triangular(Lt, w, upper=True)[..., 0]
+        zt = _hmv(A, xt)
+        x = alpha * xt + (1.0 - alpha) * x
+        z_relaxed = alpha * zt + (1.0 - alpha) * z
+        z_new = torch.minimum(torch.maximum(z_relaxed + y / rho_vec, lb), ub)
+        y = y + rho_vec * (z_relaxed - z_new)
+        z = z_new
+        count("admm.iters")
     return x, y

@@ -6,9 +6,9 @@ Phases, each printing lines of its own under a header with the seconds
 since the script started:
 
 1. Card and build: the card's name and power limit, the precision
-   policy, and the build of the wavefront kernels and the NMPC feedback
-   kernel from alore_legged_manipulator_tpu_torch/csrc/ with nvcc
-   (sm_90a).
+   policy, and the build of the wavefront kernels, the NMPC feedback
+   kernel and the ADMM kernel at the LTV-MPC's shape from
+   alore_legged_manipulator_tpu_torch/csrc/ with nvcc (sm_90a).
 2. Kernels against their plain PyTorch versions on the card: K1
    (`wavefront_packed_cuda`) and K2 (`octile_distance_field_cuda`) on
    random-obstacle 80x80 grids at the mission's launch shape (B=64) and
@@ -25,9 +25,16 @@ since the script started:
    (float32 within 2e-4), each timed with CUDA events after a warm-up
    beside the plain version and the bound (`feedback_work`), with its
    registers and blocks per SM; `nmpc_feedback_probe()` runs this
-   alone.  From here on every path's launch counts (`reset_launches`,
-   `kernel_launches`) hold K3 to one launch for each matrix-free NMPC
-   feedback call on the card.
+   alone.  Then K4, the ADMM kernel (`qp_admm_cuda`), through
+   `qp_admm_general` on the LTV-MPC's QP (145 variables, 201 rows, its
+   layout's pattern) against the eager loop `admm_steps` at B=1 and
+   B=4096 (float64 within 1e-10; float32 as close to the float64
+   solution as the float32 loop), timed beside the plain loop and the
+   bound (portbench/ltv_work.py), with its registers and blocks per SM;
+   `qp_admm_probe()` runs this alone.  From here on every path's launch
+   counts (`reset_launches`, `kernel_launches`) hold K3 to one launch
+   for each matrix-free NMPC feedback call on the card and K4 to one for
+   each ADMM pass there.
 3. The production mission on the card at full width: B=64 three-object
    missions on the 80x80 map (wavefront front end, MINCO back end with
    the compact solver direction, NMPC + ICR-EKF closed-loop push) through
@@ -177,14 +184,15 @@ since the script started:
    lines whose path holds them, K3 on the closed loop, the legs and the
    mission fleet, and once an RTI tick on the two NMPC lines.
    `bench_probe()` runs it alone.
-14. The `kernels` JSON line: K1, K2 and K3 with their launches on each
-   path (K1 and K2 0 on the planner simulation, the mapped mission, the
-   served policy, training, the camera mission and the entry points,
+14. The `kernels` JSON line: K1, K2, K3 and K4 with their launches on
+   each path (K1 and K2 0 on the planner simulation, the mapped mission,
+   the served policy, training, the camera mission and the entry points,
    whose paths hold no wavefront; K1 once on the mesh mission; K3 on
-   every path that ticks the NMPC on the card), the bench lines'
+   every path that ticks the NMPC on the card; K4 three times a tick of
+   the LTV-MPC, on the planner simulation under it), the bench lines'
    launches, the bench shapes' comparisons and K3's times at B=1 and
-   B=16384, the script's wall time, and as the last line {"ok": true,
-   "device": {...}}.
+   B=16384 and K4's at B=1 and B=4096, the script's wall time, and as
+   the last line {"ok": true, "device": {...}}.
 
 Fails (non-zero exit, no result line) without a CUDA card or without the
 package beside it.  Imports nothing of JAX.
@@ -261,27 +269,60 @@ def _count_feedback_calls():
     nmpc.feedback = counted
 
 
+# qp_admm_general calls on CUDA tensors since `reset_launches`: the
+# ADMM passes K4 serves, one launch each
+ADMM_CALLS = {"card": 0}
+
+
+def _count_admm_calls():
+    """Wrap ops/qp.py's `qp_admm_general`, in that module and where
+    control/ltv_mpc.py holds it, to count in ADMM_CALLS the calls on CUDA
+    tensors, which K4 serves.  Idempotent."""
+    from alore_legged_manipulator_tpu_torch.control import ltv_mpc
+    from alore_legged_manipulator_tpu_torch.ops import qp
+    fn = qp.qp_admm_general
+    if getattr(fn, "counted", False):
+        return
+
+    def counted(H, g, *args, **kwargs):
+        if g.is_cuda:
+            ADMM_CALLS["card"] += 1
+        return fn(H, g, *args, **kwargs)
+    counted.counted = True
+    qp.qp_admm_general = ltv_mpc.qp_admm_general = counted
+
+
 def reset_launches():
     """Set to 0 the launch counts of the hand-written kernels (K1 and K2
-    in ops/wavefront_cuda.py, K3 in ops/nmpc_feedback_cuda.py) and the
-    count of the feedback calls K3 serves."""
+    in ops/wavefront_cuda.py, K3 in ops/nmpc_feedback_cuda.py, K4 in
+    ops/qp_admm_cuda.py) and the counts of the calls K3 and K4 serve."""
     from alore_legged_manipulator_tpu_torch.ops import nmpc_feedback_cuda
+    from alore_legged_manipulator_tpu_torch.ops import qp_admm_cuda
     from alore_legged_manipulator_tpu_torch.ops import wavefront_cuda
     _count_feedback_calls()
+    _count_admm_calls()
     wavefront_cuda.reset_launches()
     nmpc_feedback_cuda.reset_launches()
+    qp_admm_cuda.reset_launches()
     FEEDBACK_CALLS["card"] = 0
+    ADMM_CALLS["card"] = 0
 
 
 def kernel_launches():
     """{kernel: launches since `reset_launches`}; fails unless K3 ran
-    exactly once for each matrix-free NMPC feedback call on the card."""
+    exactly once for each matrix-free NMPC feedback call on the card and
+    K4 once for each ADMM pass there."""
     from alore_legged_manipulator_tpu_torch.ops import nmpc_feedback_cuda
+    from alore_legged_manipulator_tpu_torch.ops import qp_admm_cuda
     from alore_legged_manipulator_tpu_torch.ops import wavefront_cuda
-    out = {**wavefront_cuda.LAUNCHES, **nmpc_feedback_cuda.LAUNCHES}
+    out = {**wavefront_cuda.LAUNCHES, **nmpc_feedback_cuda.LAUNCHES,
+           **qp_admm_cuda.LAUNCHES}
     calls = FEEDBACK_CALLS["card"]
     assert out["nmpc_feedback"] == calls, \
         f"K3 ran {out['nmpc_feedback']} times for {calls} feedback calls"
+    passes = ADMM_CALLS["card"]
+    assert out["qp_admm"] == passes, \
+        f"K4 ran {out['qp_admm']} times for {passes} ADMM passes"
     return out
 
 
@@ -461,6 +502,144 @@ def nmpc_feedback_probe():
     so, log = nfc.build()
     print(f"built {so.name} in {time.perf_counter() - t0:.1f} s", flush=True)
     nmpc_feedback_on_card(log)
+
+
+def _admm_inputs(B, dtype, seed=0):
+    """(H, g, A, lb, ub) of the LTV-MPC's first pass (`ltv-mpc-3ms`: 145
+    variables, 201 rows) at B random states, references and carried
+    plans on the card, and its layout's pattern of A."""
+    from alore_legged_manipulator_tpu_torch.control import ltv_mpc as tl
+    cfg = tl.LtvMpcConfig()
+    rng = np.random.default_rng(seed)
+    T = cfg.horizon
+    x0 = np.stack([rng.uniform(-1, 1, B), rng.uniform(-1, 1, B),
+                   rng.uniform(-3, 3, B)], -1)
+    output = np.stack([rng.uniform(-0.5, 2.0, (B, T)),
+                       rng.uniform(-4.0, 4.0, (B, T))], 1)
+    ts = 0.01 * np.arange(1, T + 1)
+    xref = np.stack([x0[:, :1] + ts, x0[:, 1:2] + 0.3 * ts,
+                     np.zeros((B, T)), x0[:, 2:3] + 0.5 * ts], 1)
+    dref = np.stack([np.full((B, T), 1.0), np.full((B, T), 0.5)], 1)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device="cuda")
+    carry = tl.LtvMpcCarry(output=t(output),
+                           delay_buff=t(rng.uniform(-1, 1, (B, 1, 2))))
+    xbar = tl._rollout(t(x0), carry.output, cfg)
+    qp = tl._build_qp(xbar, t(xref), t(dref), carry, cfg)
+    return qp, tl._qp_layout(cfg, dtype, torch.device("cuda")).pattern
+
+
+def _admm_factor(H, A, lb, ub, rho=0.4):
+    """qp_admm_general's rows' rho and lower factor of its KKT matrix."""
+    rho_vec = torch.where(torch.abs(ub - lb) < 1e-12,
+                          torch.full_like(lb, rho * 1e3),
+                          torch.full_like(lb, rho))
+    K = (H + 1e-6 * torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+         + torch.matmul(A.transpose(1, 2) * rho_vec[:, None, :], A))
+    return rho_vec, torch.linalg.cholesky_ex(K).L
+
+
+def _admm_plain(H, g, A, lb, ub, iters=150, rho=0.4):
+    """qp_admm_general's steps through the eager loop on the card."""
+    from alore_legged_manipulator_tpu_torch.ops.qp import admm_steps
+    rho_vec, L = _admm_factor(H, A, lb, ub, rho)
+    return admm_steps(L, A, g, lb, ub, rho_vec, None, 1e-6, 1.6, iters)
+
+
+def qp_admm_on_card():
+    """K4, the ADMM kernel, through `qp_admm_general` on the LTV-MPC's QP
+    with its layout's pattern against the eager loop (`admm_steps`) at
+    B=1 and B=4096, 150 steps: in float64 within 1e-10; in float32 each
+    lane's gap to the float64 solution at most twice the float32 loop's
+    plus 1e-5 (the two sum in other orders; tests/test_torch_qp_admm_cuda
+    .py).  Times (float32, one pass, from the factor): kernel ms (CUDA
+    events over back-to-back passes after a warm-up; device ms from a
+    graph's replays), plain ms, the bound (portbench/ltv_work.py's
+    admm_bound_ms, a pass a third of a tick's), registers, blocks per SM
+    and launches (one a pass).  Returns {B: measurements}."""
+    from alore_legged_manipulator_tpu_torch.ops import qp_admm_cuda as qac
+    from alore_legged_manipulator_tpu_torch.ops.qp import qp_admm_general
+    from alore_legged_manipulator_tpu_torch.ops.wavefront_bench import (
+        graph_ms, time_ms)
+    from portbench import ltv_work
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "portbench", "configs", "ltv-mpc-3ms.json")) as f:
+        config = json.load(f)
+    f32, f64 = torch.float32, torch.float64
+    out = {}
+    for B in (1, 4096):
+        qp64, pat64 = _admm_inputs(B, f64, seed=B)
+        x64, y64 = _admm_plain(*qp64)
+        got = qp_admm_general(*qp64, iters=150, rho=0.4, pattern=pat64)
+        gap64 = max(float((a - b).abs().max())
+                    for a, b in zip(got, (x64, y64)))
+        assert gap64 < 1e-10, f"K4 B={B} float64: kernel vs eager {gap64}"
+        qp, pat = _admm_inputs(B, f32, seed=B)
+        plain = _admm_plain(*qp)
+        H, g, A, lb, ub = qp
+        qac.reset_launches()
+        x_k, y_k = qp_admm_general(*qp, iters=150, rho=0.4, pattern=pat)
+        torch.cuda.synchronize()
+        launches = qac.LAUNCHES["qp_admm"]
+        assert launches == 1, f"K4 ran {launches} times for one pass"
+        gaps = {}
+        for name, k, p, r in (("x", x_k, plain[0], x64),
+                              ("y", y_k, plain[1], y64)):
+            scale = float(r.abs().max()) or 1.0
+            gk = (k.double() - r).abs().flatten(1).amax(1) / scale
+            gp = (p.double() - r).abs().flatten(1).amax(1) / scale
+            gaps[name] = dict(kernel_vs_plain=float((k - p).abs().max()),
+                              kernel_vs_f64=float(gk.max()),
+                              plain_vs_f64=float(gp.max()))
+            assert bool((gk <= 2.0 * gp + 1e-5).all()), \
+                f"K4 B={B} float32 {name}: {gaps[name]}"
+        L = _admm_factor(H, A, lb, ub)[1]
+
+        def run():
+            return qac.qp_admm_cuda(L, A, g, lb, ub, rho=0.4, sigma=1e-6,
+                                    alpha=1.6, iters=150, pattern=pat)
+        by_ops = 1e3 * B * 150 * ltv_work.step_flops(config) \
+            / ltv_work.PEAK_FLOPS
+        by_bytes = 1e3 * B * ltv_work.pass_bytes(config) / ltv_work.PEAK_BYTES
+        bound = max(by_ops, by_bytes)
+        assert abs(bound - ltv_work.admm_bound_ms(config, B, 450) / 3) \
+            <= 1e-9 * bound
+        ms = time_ms(run, 20 if B == 1 else 5, warmup=2)
+        out[B] = dict(
+            shape=f"B={B} n=145 m=201 nnz={pat.nnz} "
+                  f"L={pat.l_entries} f32",
+            gaps=gaps, max_gap_f64=gap64, ms=ms,
+            device_ms=graph_ms(run, replays=5),
+            plain_ms=time_ms(lambda: _admm_plain(*qp), 1, warmup=1),
+            bound_ms=bound,
+            bound_by="operations" if by_ops >= by_bytes else "bytes",
+            roofline_pct=100.0 * bound / ms, launches=launches,
+            **qac.occupancy(145, 201, pat.nnz, pat.l_entries, f32))
+        print(f"K4 qp_admm {out[B]['shape']}: " + json.dumps(out[B]),
+              flush=True)
+    return out
+
+
+def qp_admm_probe():
+    """Build K4 and run `qp_admm_on_card` alone (about a minute)."""
+    from alore_legged_manipulator_tpu_torch.ops import qp_admm_cuda as qac
+    from alore_legged_manipulator_tpu_torch.utils.precision import (
+        set_precision_policy)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+    set_precision_policy()
+    for dtype in (torch.float32, torch.float64):
+        t0 = time.perf_counter()
+        so, log = qac.build(dtype)
+        print(f"built {so.name} ({dtype}) in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("  ptxas (K4):", line.strip(), flush=True)
+    return qp_admm_on_card()
 
 
 def dispatched_ops(fn, grad=False) -> int:
@@ -2373,6 +2552,8 @@ def ltv_golden_checks(name, device="cuda"):
     float32 tick (command 5e-3)."""
     from alore_legged_manipulator_tpu_torch.control import ltv_mpc as tl
     from alore_legged_manipulator_tpu_torch.ops.qp import qp_admm_general
+    from alore_legged_manipulator_tpu_torch.ops.qp_admm_cuda import (
+        admm_pattern)
     from alore_legged_manipulator_tpu_torch.utils.angles import (
         smooth_yaw_sequence)
     from tests import torch_golden_io as gio
@@ -2394,8 +2575,11 @@ def ltv_golden_checks(name, device="cuda"):
     qp = tl._build_qp(xbar, t(xref), t(dref), carry, cfg)
     checks = [gio.deviation(f"{name} QP {key}", host(a), g[key], 1e-12, 1e-7)
               for a, key in zip(qp, ("P", "q", "A", "lb", "ub"))]
+    # the float64 dense pattern of this A does not fit a block: the
+    # kernel reads the golden's own nonzeros
     sol, _ = qp_admm_general(*(t(g[k]) for k in ("P", "q", "A", "lb", "ub")),
-                             iters=LTV_QP_ITERS, rho=0.4)
+                             iters=LTV_QP_ITERS, rho=0.4,
+                             pattern=admm_pattern(t(g["A"])[0] != 0))
     checks.append(gio.deviation(f"{name} ADMM solution", host(sol),
                                 g["sol0"], 2e-5, 1e-7))
     for dtype in (torch.float64, torch.float32):
@@ -3301,6 +3485,14 @@ def main() -> int:
     t0 = time.perf_counter()
     so, feedback_log = nfc.build()
     print(f"built {so.name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    from alore_legged_manipulator_tpu_torch.ops import qp_admm_cuda as qac
+    t0 = time.perf_counter()
+    so, log = qac.build()
+    print(f"built {so.name} (K4) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas (K4):", line.strip(), flush=True)
     # the example twins of phase 12 run in child processes beside the
     # phases below; any still running when the script ends is killed
     children = start_example_children()
@@ -3354,6 +3546,7 @@ def main() -> int:
     else:
         raise AssertionError("a 162x162 grid was not refused")
     k3 = nmpc_feedback_on_card(feedback_log)
+    k4 = qp_admm_on_card()
 
     # ---- 3. the production mission on the card ----
     _phase("production mission B=64 K=3 on the card (compact, corrections)")
@@ -3581,6 +3774,21 @@ def main() -> int:
         plain_ms_b1=m1["plain_ms"], bound_ms_b1=m1["bound_ms"],
         device_ms_b1=m1["device_ms"], registers=m16k["registers"],
         blocks_per_sm=m16k["blocks_per_sm"]))
+    a1, a4k = k4[1], k4[4096]
+    kern.append(dict(
+        name="qp_admm", route="cuda",
+        source="alore_legged_manipulator_tpu_torch/csrc/qp_admm.cu",
+        replaces=None,
+        **{path: n["qp_admm"] for path, n in paths.items()},
+        max_abs_err=max(max(m["gaps"]["x"]["kernel_vs_plain"],
+                            m["gaps"]["y"]["kernel_vs_plain"])
+                        for m in k4.values()),
+        ms=a4k["ms"], plain_ms=a4k["plain_ms"], bound_ms=a4k["bound_ms"],
+        bound_by=a4k["bound_by"], library_ms=None, shape=a4k["shape"],
+        device_ms=a4k["device_ms"], ms_b1=a1["ms"],
+        plain_ms_b1=a1["plain_ms"], bound_ms_b1=a1["bound_ms"],
+        device_ms_b1=a1["device_ms"], registers=a4k["registers"],
+        blocks_per_sm=a4k["blocks_per_sm"]))
     print(json.dumps({"kernels": kern}), flush=True)
     print(f"script wall time: {time.perf_counter() - T_START:.1f} s",
           flush=True)
